@@ -1,15 +1,22 @@
 #!/usr/bin/env python3
-"""Drive the minio_tpu_torch erasure data plane on one NVIDIA H100.
+"""Drive the minio_tpu_torch port on one NVIDIA H100.
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from minio_tpu_torch/csrc (one nvcc call),
-holds each kernel byte-exact against its plain PyTorch version and the
-golden pins, then drives the main path through the port's entry points at
-deployment size: the flagship ``full_step`` (8+4, 32 blocks of 10 MiB) and
-a PUT -> degraded GET -> heal of a 259 MiB object on a 12+4 set with
-10 MiB blocks. Every phase asserts; any failure exits non-zero. Prints the
-card, the kernels' times beside their bounds, and as its last line
+Builds the port's CUDA kernels from minio_tpu_torch/csrc (one nvcc process
+per source, started together), holds each kernel byte-exact against its
+plain PyTorch version and the golden pins, then drives each main path
+through the port's entry points at deployment size:
+
+- the erasure data plane: the flagship ``full_step`` (8+4, 32 blocks of
+  10 MiB) and a PUT -> degraded GET -> heal of a 259 MiB object on a 12+4
+  set with 10 MiB blocks;
+- S3 Select: ``run_select`` (SelectObjectContent) over a 256 MiB Parquet
+  object, its response bodies byte-identical to the CPU lane's, and at
+  65,536 rows to the row oracle's Records.
+
+Every phase asserts; any failure exits non-zero. Prints the card, the
+kernels' times beside their bounds, and as its last line
 ``{"ok": true, "device": {...}}``. Needs one card; exits non-zero without
 one, or without the rest of the repository beside it.
 """
@@ -109,6 +116,332 @@ def wall_ms(torch, fn, runs: int = 1) -> float:
 def max_err(torch, a, b) -> int:
     check(a.shape == b.shape, f"shape {tuple(a.shape)} != {tuple(b.shape)}")
     return int((a.to(torch.int32) - b.to(torch.int32)).abs().max())
+
+
+def device_us(prof) -> dict:
+    """Self device time in µs per event name of a torch.profiler run."""
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        out[ev.key] = us
+    return out
+
+
+# -- S3 Select (kernel X2) ---------------------------------------------------
+
+# Literals exact in float32 (a plan with any other literal is not kernel
+# eligible; a minus sign parses as arithmetic).
+EXACT_NUMS = ("0", "1", "3", "7", "12", "40", "0.5", "0.25", "2.125",
+              "1.75", "3.5", "16777216", "0.0009765625")
+# Predicates that between them emit every opcode of the program.
+EVERY_OPCODE = (
+    "f < 0.5", "b = TRUE", "b < f", "f BETWEEN 1 AND 2.125",
+    "i NOT IN (3, 7, NULL)", "z IS MISSING", "f IS NOT NULL", "f AND b",
+    "NULL OR b", "NOT z", "NOT NULL", "i != i", "f <> f", "NULL = f",
+    "(f > 1 OR b) AND NOT (i BETWEEN NULL AND 7)", "b IN (TRUE, 3)")
+SELECT_ROWS = 16_777_216        # 4 REQUIRED 4-byte columns: 256 MiB
+SELECT_ORACLE_ROWS = 65_536
+SELECT_QUERIES = (
+    "SELECT c1 FROM S3Object WHERE c0 < 0.0009765625",
+    "SELECT COUNT(*) FROM S3Object WHERE c0 >= 0.25 AND i0 BETWEEN 1000 "
+    "AND 50000 AND i1 IN (3, 5, 7)")
+
+
+def gen_pred(rng, depth: int, bare: bool = False) -> str:
+    """A random kernel-eligible predicate over f (FLOAT), i (INT32), b
+    (BOOLEAN) and the absent column z."""
+    def operand(kind):
+        if kind == "bool":
+            return rng.choice(["b", "TRUE", "FALSE", "b", "z", "NULL"])
+        r = rng.random()
+        if r < 0.55:
+            return rng.choice(["f", "i", "f", "i", "z"])
+        return rng.choice(EXACT_NUMS) if r < 0.95 else \
+            rng.choice(["NULL", "b", "TRUE"])
+
+    roll = rng.random()
+    if depth <= 0 or roll < 0.3:
+        kind = "bool" if rng.random() < 0.2 else "num"
+        op = rng.choice(["=", "!=", "<>", "<", "<=", ">", ">="])
+        return f"{operand(kind)} {op} {operand(kind)}"
+    if roll < 0.42:
+        lo, hi = sorted(rng.sample(EXACT_NUMS[:10], 2), key=float)
+        neg = rng.choice(["", "NOT "])
+        return f"{operand('num')} {neg}BETWEEN {lo} AND {hi}"
+    if roll < 0.54:
+        opts = ", ".join(rng.choice(EXACT_NUMS + ("NULL", "TRUE"))
+                         for _ in range(rng.randint(1, 4)))
+        neg = rng.choice(["", "NOT "])
+        return f"{operand('num')} {neg}IN ({opts})"
+    if roll < 0.66:
+        mode = rng.choice(["NULL", "NOT NULL", "MISSING", "NOT MISSING"])
+        return f"{rng.choice(['f', 'i', 'b', 'z', 'NULL'])} IS {mode}"
+    if roll < 0.74 and bare:
+        return rng.choice(["f", "i", "b", "z"])
+    if roll < 0.84:
+        return f"NOT ({gen_pred(rng, depth - 1, True)})"
+    return (f"({gen_pred(rng, depth - 1, True)}) "
+            f"{rng.choice(['AND', 'OR'])} ({gen_pred(rng, depth - 1, True)})")
+
+
+def select_kernel_checks(np, torch, dev) -> int:
+    """8. X2 against its plain version on the card, byte for byte, over
+    random eligible plans (every opcode) on FLOAT / INT32 / BOOLEAN
+    columns with NULLs, MISSING cells, NaNs and an absent column."""
+    import random
+
+    from minio_tpu_torch.ops import select_kernels as sk
+    from minio_tpu_torch.s3select import columnar, compile as comp, sql
+
+    t0 = time.perf_counter()
+    worst, plans, opcodes = 0, 0, set()
+    for n in (1, 31, 32, 33, 65_537, SELECT_ROWS):
+        rng = np.random.default_rng(n)
+        f = (np.round(rng.uniform(-4, 4, n) * 4) / 4).astype(np.float32)
+        f[rng.random(n) < 0.08] = np.nan
+        i = rng.integers(-12, 41, n).astype(np.int32)
+        big = rng.random(n) < 0.02
+        i[big] = 1 << 25
+        batch = columnar.ColumnBatch(["f", "i", "b"], {
+            "f": columnar.Column("f", "num", raw=f, null=rng.random(n) < 0.15,
+                                 miss=rng.random(n) < 0.08),
+            "i": columnar.Column("i", "num", raw=i, null=rng.random(n) < 0.15,
+                                 intish=True),
+            "b": columnar.Column("b", "bool", raw=rng.random(n) < 0.5,
+                                 null=rng.random(n) < 0.15,
+                                 miss=rng.random(n) < 0.05)}, n, 9 * n)
+        prng = random.Random(n)
+        count = 12 if n == SELECT_ROWS else 40
+        srcs = list(EVERY_OPCODE) + [gen_pred(prng, prng.randint(1, 3))
+                                     for _ in range(count)]
+        for src in srcs:
+            q = sql.parse(f"SELECT * FROM S3Object WHERE {src}")
+            plan = comp.Plan(comp.lower(q.where, batch))
+            program = sk.lower_program(plan)
+            check(program is not None, f"X2: {src!r} is not eligible")
+            cols, _ = sk.bind_plan(plan, batch)
+            placed = sk.place_columns(cols, n, dev)
+            val, valid = sk.run_program(program, placed, n, dev)
+            pval, pvalid = sk.eval_program_plain(program, placed, n, dev)
+            e = max(max_err(torch, val, pval), max_err(torch, valid, pvalid))
+            check(e == 0, f"X2 n={n} {src!r}: kernel != plain")
+            worst = max(worst, e)
+            opcodes |= set(program.ops[:, 0].tolist())
+            plans += 1
+        del batch, f, i
+    check(opcodes == set(range(sk.OP_NOT + 1)),
+          f"X2 checks missed opcodes {set(range(sk.OP_NOT + 1)) - opcodes}")
+    log(f"[kernels] select_scan == plain for {plans} plans (every opcode) "
+        f"at n in 1..{SELECT_ROWS} ({time.perf_counter() - t0:.1f} s)")
+    return worst
+
+
+def select_object(np, n: int) -> bytes:
+    """The seeded Parquet object: c0, c1 FLOAT in [0, 1), i0 INT32 in
+    [0, 100000), i1 INT32 in [0, 16), all REQUIRED, one row group."""
+    from minio_tpu_torch.s3select import parquet as pq
+    rng = np.random.default_rng(14)
+    cols = [pq.Column("c0", pq.FLOAT, optional=False),
+            pq.Column("c1", pq.FLOAT, optional=False),
+            pq.Column("i0", pq.INT32, optional=False),
+            pq.Column("i1", pq.INT32, optional=False)]
+    data = {"c0": rng.random(n, dtype=np.float32),
+            "c1": rng.random(n, dtype=np.float32),
+            "i0": rng.integers(0, 100_000, n).astype(np.int32),
+            "i1": rng.integers(0, 16, n).astype(np.int32)}
+    return pq.write_parquet_columns(cols, data, n)
+
+
+def select_request(expr: str) -> dict:
+    from xml.sax.saxutils import escape
+
+    from minio_tpu_torch.s3select.select import parse_request
+    return parse_request(
+        ("<SelectObjectContentRequest><Expression>" + escape(expr)
+         + "</Expression><ExpressionType>SQL</ExpressionType>"
+         "<InputSerialization><Parquet/></InputSerialization>"
+         "<OutputSerialization><JSON/></OutputSerialization>"
+         "</SelectObjectContentRequest>").encode())
+
+
+def records_of(body: bytes) -> bytes:
+    from minio_tpu_torch.s3select.message import decode_messages
+    msgs = decode_messages(body)
+    check(bool(msgs) and msgs[0]["headers"].get(":message-type")
+          != "error", f"select answered an error: {msgs[:1]}")
+    return b"".join(m["payload"] for m in msgs
+                    if m["headers"].get(":event-type") == "Records")
+
+
+def select_path(np, torch, dev):
+    """9. SelectObjectContent through run_select on a 256 MiB Parquet
+    object, the card against the CPU lane; at 65,536 rows also against
+    the row oracle. Returns (select_scan launches of the main path, the
+    object's decoded batch and query 2's plan, for the times)."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from minio_tpu_torch.ops import hh256_gpu, rs_gpu
+    from minio_tpu_torch.ops import select_kernels as sk
+    from minio_tpu_torch.s3select import columnar, compile as comp, sql
+    from minio_tpu_torch.s3select.select import run_select
+
+    small = select_object(np, SELECT_ORACLE_ROWS)
+    for q in SELECT_QUERIES:
+        req = select_request(q)
+        got = run_select(req, small, device=dev)
+        check(got == run_select(req, small, device="cpu"),
+              f"65,536 rows {q!r}: card body != CPU body")
+        os.environ["MINIO_SELECT_ENGINE"] = "row"
+        try:
+            want = records_of(run_select(req, small, device=dev))
+        finally:
+            os.environ.pop("MINIO_SELECT_ENGINE", None)
+        check(records_of(got) == want and want,
+              f"65,536 rows {q!r}: Records != the row oracle's")
+    log("[select] 65,536 rows: card bodies == CPU bodies, Records == row "
+        "oracle's, both queries")
+
+    t0 = time.perf_counter()
+    data = select_object(np, SELECT_ROWS)
+    log(f"[select] object {len(data)} B, {SELECT_ROWS} rows x 4 REQUIRED "
+        f"FLOAT/INT32 columns, written in {time.perf_counter() - t0:.2f} s")
+    reqs = [select_request(q) for q in SELECT_QUERIES]
+    run_select(reqs[1], small, device=dev)      # warm the CUDA context
+
+    # The main path, with every launch count zeroed just before.
+    rs_gpu.gf_apply_cuda.launches = 0
+    hh256_gpu.hash_chunks_cuda.launches = 0
+    sk.select_scan_cuda.launches = 0
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    prof.__enter__()
+    bodies, walls = [], []
+    for req in reqs:
+        t0 = time.perf_counter()
+        bodies.append(run_select(req, data, device=dev))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    prof.__exit__(None, None, None)
+    launches = sk.select_scan_cuda.launches
+    others = rs_gpu.gf_apply_cuda.launches + \
+        hh256_gpu.hash_chunks_cuda.launches
+    log(f"[select] main path: launches select_scan {launches}, others "
+        f"{others}")
+    check(launches > 0, "select_scan never launched on the select path")
+
+    rows = [records_of(b) for b in bodies]
+    check(rows[0].count(b"\n") > 1000, "query 1 returned too few rows")
+    check(rows[1].startswith(b'{"_1":'), f"query 2 answered {rows[1]!r}")
+    cpu_walls = []
+    for req, body in zip(reqs, bodies):
+        t0 = time.perf_counter()
+        check(run_select(req, data, device="cpu") == body,
+              "256 MiB: card body != CPU body")
+        cpu_walls.append((time.perf_counter() - t0) * 1e3)
+
+    us = device_us(prof)
+    k_us = sum(v for n, v in us.items() if "select_scan_kernel" in n)
+    cp_us = sum(v for n, v in us.items() if "memcpy" in n.lower())
+    all_us = sum(us.values())
+    wall = sum(walls)
+    t0 = time.perf_counter()
+    decoded = [list(columnar.parquet_column_batches(data, {"c0", "c1"})),
+               list(columnar.parquet_column_batches(data,
+                                                    {"c0", "i0", "i1"}))]
+    parse_ms = (time.perf_counter() - t0) * 1e3
+    nrows1 = rows[0].count(b"\n")
+    log(f"[select] 256 MiB, card: query 1 ({nrows1} rows) "
+        f"{walls[0]} ms, query 2 (COUNT {rows[1].strip().decode()}) "
+        f"{walls[1]} ms wall; CPU lane {cpu_walls[0]} ms, {cpu_walls[1]} "
+        f"ms; bodies byte-identical")
+    if all_us:
+        log(f"[select] device time (torch.profiler) over both queries: "
+            f"select_scan kernel {k_us / 1e3} ms, host<->device copies "
+            f"{cp_us / 1e3} ms, all device work {all_us / 1e3} ms of "
+            f"{wall} ms wall (device idle share {1 - all_us / 1e3 / wall}); "
+            f"host Parquet decode of the referenced columns alone "
+            f"{parse_ms} ms; the rest of the wall is host bind, masks and "
+            f"output formatting")
+    else:
+        log("[select] device time: not measured (the profiler reported "
+            "no device time)")
+    for q, req in zip(SELECT_QUERIES, reqs):
+        parts = host_breakdown(lambda: run_select(req, data, device=dev))
+        log(f"[select] where the wall goes (cProfile, one more run of "
+            f"{q[:40]!r}...): " + ", ".join(f"{k} {v} ms"
+                                            for k, v in parts.items()))
+    batch = decoded[1][0]
+    plan = comp.Plan(comp.lower(sql.parse(SELECT_QUERIES[1]).where, batch))
+    return launches, batch, plan
+
+
+# Functions of the select path, by (file suffix, name), whose cumulative
+# time host_breakdown reports.
+SELECT_STAGES = {
+    "run_select": ("s3select/select.py", "run_select"),
+    "parquet decode": ("s3select/columnar.py", "parquet_column_batches"),
+    "plan": ("s3select/engine.py", "__init__"),
+    "eval_predicate": ("ops/select_kernels.py", "eval_predicate"),
+    "bind": ("ops/select_kernels.py", "bind_plan"),
+    "host->device": ("ops/select_kernels.py", "place_columns"),
+    "kernel launch": ("ops/select_kernels.py", "run_program"),
+    "aggregate": ("s3select/engine.py", "_agg_batch"),
+    "project": ("s3select/engine.py", "_emit_batch"),
+    "format": ("s3select/readers.py", "format_json"),
+}
+
+
+def host_breakdown(fn) -> dict:
+    """Cumulative ms of the SELECT_STAGES functions in one fn() run,
+    under cProfile (whose overhead is in these numbers)."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.runcall(fn)
+    stats = pstats.Stats(prof).stats
+    out = {}
+    for label, (suffix, func) in SELECT_STAGES.items():
+        ms = sum(v[3] for (path, _, name), v in stats.items()
+                 if name == func and path.endswith(suffix)) * 1e3
+        if ms:
+            out[label] = ms
+    return out
+
+
+def select_times(np, torch, dev, batch, plan) -> dict:
+    """10. X2 at the main path's shape (query 2 over 16,777,216 rows):
+    CUDA events, median of 20, beside its byte bound and the plain
+    version on the card."""
+    from minio_tpu_torch.ops import select_kernels as sk
+
+    n = batch.nrows
+    program = sk.lower_program(plan)
+    cols, _ = sk.bind_plan(plan, batch)
+    placed = sk.place_columns(cols, n, dev)
+    out_val = torch.empty(n, dtype=torch.bool, device=dev)
+    out_valid = torch.empty(n, dtype=torch.bool, device=dev)
+    ms = events_ms(torch, lambda: sk.select_scan_cuda(
+        program, placed, n, out_val, out_valid))
+    plain_ms = events_ms(torch, lambda: sk.eval_program_plain(
+        program, placed, n, dev), runs=5, warmup=1)
+    pval, pvalid = sk.eval_program_plain(program, placed, n, dev)
+    check(torch.equal(out_val, pval) and torch.equal(out_valid, pvalid),
+          "X2 at the main-path shape: kernel != plain")
+    nbytes = len(placed) * n * (4 + 1 + 1) + 2 * n
+    ops = len(program.ops) * n
+    bound = max(nbytes / HBM_BPS, ops / SCALAR_OPS) * 1e3
+    by = "bytes" if nbytes / HBM_BPS >= ops / SCALAR_OPS else "operations"
+    shape = (f"{len(program.ops)}-instruction program over {len(placed)} "
+             f"columns x {n} rows -> 2 x ({n},) bool")
+    log(f"[times] select_scan ({shape}): {ms} ms, bound {bound} ms ({by}), "
+        f"plain {plain_ms} ms")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "shape": shape}
 
 
 def main() -> None:
@@ -404,6 +737,12 @@ def main() -> None:
         f"{k2_bound} ms ({k2_by}), plain {k2_plain_ms} ms "
         f"(same shape, also compared byte-exact)")
 
+    # 8.-10. The S3 Select slice: X2 against its plain version, the
+    #        SelectObjectContent path on a 256 MiB Parquet object, times.
+    x2_err = select_kernel_checks(np, torch, dev)
+    x2_launches, batch, plan = select_path(np, torch, dev)
+    x2 = select_times(np, torch, dev, batch, plan)
+
     kernels = [
         {"name": "gf_apply", "route": "cuda",
          "source": "minio_tpu_torch/csrc/gf_apply.cu",
@@ -425,6 +764,15 @@ def main() -> None:
          "shape": f"hash_chunks ({HB}, {HL}) -> ({HB}, 32)",
          "plain_shape": "the same",
          "library_note": "no PyTorch call computes HighwayHash"},
+        {"name": "select_scan", "route": "cuda",
+         "source": "minio_tpu_torch/csrc/select_scan.cu",
+         "replaces": "minio_tpu/ops/select_kernels.py:163",
+         "launches": x2_launches, "max_abs_err": x2_err, "ms": x2["ms"],
+         "plain_ms": x2["plain_ms"], "bound_ms": x2["bound_ms"],
+         "bound_by": x2["bound_by"], "library_ms": None,
+         "shape": x2["shape"], "plain_shape": "the same",
+         "library_note": "no single PyTorch call computes a predicate "
+                         "program"},
     ]
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     log(smi)

@@ -1,1 +1,2 @@
-"""Kernels and host math of the data plane (see rs_gpu.py, hh256_gpu.py)."""
+"""Kernels and host math: the erasure data plane (rs_gpu.py, hh256_gpu.py)
+and the S3 Select predicate scan (select_kernels.py)."""

@@ -1,8 +1,9 @@
 """Device resolution and the build of the port's CUDA kernels.
 
-Both sources under ``minio_tpu_torch/csrc/`` are compiled by ONE nvcc call
-for ``sm_90a`` into a shared library with a plain C interface, at first
-use, into ``minio_tpu_torch/build/`` (git-ignored). The library name
+The sources under ``minio_tpu_torch/csrc/`` are compiled for ``sm_90a``
+at first use, one nvcc process per source, all started together, and
+linked into one shared library with a plain C interface in
+``minio_tpu_torch/build/`` (git-ignored). The library name
 carries a hash of the sources and flags, so an edited source rebuilds and
 an unchanged one loads the existing file. It is loaded with ctypes; every
 C entry point launches on the stream it is given and returns
@@ -30,9 +31,9 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("gf_apply.cu", "hh256.cu")
+SOURCES = ("gf_apply.cu", "hh256.cu", "select_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -47,6 +48,8 @@ _SIGNATURES = {
                         _I, _I64, _I64, _P),
     # data, row_stride, B, L, key0..key3, out, stream
     "hh256_launch": (_P, _I64, _I64, _I64, _U64, _U64, _U64, _U64, _P, _P),
+    # prog, n_ops, pool, cols, ncols, n, out_val, out_valid, stream
+    "select_scan_launch": (_P, _I, _P, _P, _I, _I64, _P, _P, _P),
 }
 
 
@@ -65,16 +68,22 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def to_device(arr, device: torch.device) -> torch.Tensor:
-    """A host uint8 array (or bytes-backed view) as a tensor on ``device``.
+def host_tensor(arr) -> torch.Tensor:
+    """A contiguous host array as a CPU tensor over the same memory.
 
     Read-only numpy views (np.frombuffer over bytes) are wrapped without a
     copy; the port only ever reads such inputs, so torch's warning about
     non-writable arrays is silenced here."""
-    arr = np.ascontiguousarray(arr, dtype=np.uint8)
+    arr = np.ascontiguousarray(arr)
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore", message=".*not writable.*")
-        t = torch.from_numpy(arr)
+        return torch.from_numpy(arr)
+
+
+def to_device(arr, device: torch.device) -> torch.Tensor:
+    """A host uint8 array (or bytes-backed view) as a tensor on ``device``
+    (no copy on the CPU)."""
+    t = host_tensor(np.asarray(arr, dtype=np.uint8))
     return t.to(device) if device.type != "cpu" else t
 
 
@@ -116,6 +125,37 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _compile_and_link(so: Path) -> str:
+    """nvcc -c for every source in parallel, then one link; returns the
+    compilers' output (the ptxas register and spill report)."""
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [BUILD_DIR / f"{Path(src).stem}.{tag}.o" for src in SOURCES]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(CSRC / src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for src, obj in zip(SOURCES, objs)]
+    outs = [proc.communicate() for proc in procs]
+    report = "".join(out + err for out, err in outs)
+    try:
+        for src, proc, (_, err) in zip(SOURCES, procs, outs):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed on {src} ({proc.returncode}):\n{err}")
+        tmp = so.with_suffix(f".{tag}")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *(str(o) for o in objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+        os.replace(tmp, so)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return report
+
+
 def build() -> KernelLib:
     """Build (when needed) and load the kernel library; cached."""
     global _lib
@@ -128,17 +168,10 @@ def build() -> KernelLib:
         seconds = 0.0
         if not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *(str(CSRC / s) for s in SOURCES)]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            ptxas = _compile_and_link(so)
             seconds = time.perf_counter() - t0
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-            log.write_text(proc.stdout + proc.stderr)
-            os.replace(tmp, so)
+            log.write_text(ptxas)
         _lib = KernelLib(so, seconds,
                          log.read_text() if log.exists() else "")
         return _lib
