@@ -129,6 +129,81 @@ def device_us(prof) -> dict:
     return out
 
 
+def gf_layout_checks(np, torch, dev, rng) -> int:
+    """K1 against its plain version where the layout picks the path: S not
+    a multiple of 16 inside 16-byte aligned rows (the vector path's ragged
+    edge), row views at byte offsets (the byte path), k = 40, both output
+    layouts, a decode matrix and a random 0/1 matrix with r = 12 (two
+    passes of output rows)."""
+    from minio_tpu_torch.ops import rs_gpu
+
+    worst = 0
+    for k, m in [(8, 4), (12, 4), (40, 5)]:
+        bm = rs_gpu.placed_parity(k, m, dev)
+        wide = torch.from_numpy(rng.integers(0, 256, (3, k, 8192 + 16),
+                                             dtype=np.uint8)).to(dev)
+        for off, S in [(0, 8192), (0, 8100), (0, 8191), (1, 8192),
+                       (4, 8000), (8, 8192), (15, 4097)]:
+            x = wide[:, :, off:off + S]
+            plain = rs_gpu.gf_apply_plain(bm.dense, x)
+            full = rs_gpu.encode_blocks(bm, x)
+            e = max(max_err(torch, rs_gpu.gf_apply(bm, x), plain),
+                    max_err(torch, full[:, k:], plain),
+                    max_err(torch, full[:, :k], x),
+                    max_err(torch, rs_gpu.encode_blocks_shardmajor(bm, x),
+                            full.transpose(0, 1)))
+            missing = (0, 3, k + 1)
+            avail = tuple(i for i in range(k + m) if i not in missing)
+            dm, used = rs_gpu.placed_any_decode(k, m, avail, missing, dev)
+            surv = torch.empty((3, k, S + 16), dtype=torch.uint8,
+                               device=dev)[:, :, off:off + S]
+            surv.copy_(full[:, list(used)])
+            got = rs_gpu.gf_apply(dm, surv)
+            e = max(e, max_err(torch, got, rs_gpu.gf_apply_plain(dm.dense,
+                                                                 surv)),
+                    max_err(torch, got, full[:, list(missing)]))
+            check(e == 0, f"gf_apply k={k} off={off} S={S}: kernel != plain")
+            worst = max(worst, e)
+    big = rs_gpu.as_bitmatrix(rng.integers(0, 2, (8 * 12, 8 * 5)).astype(
+        np.float32), dev)
+    for off in (0, 3):
+        y = wide[:, :5, off:off + 4096]
+        e = max_err(torch, rs_gpu.gf_apply(big, y),
+                    rs_gpu.gf_apply_plain(big.dense, y))
+        check(e == 0, f"gf_apply r=12 off={off}: kernel != plain")
+        worst = max(worst, e)
+    return worst
+
+
+def hh_layout_checks(np, torch, dev, rng) -> int:
+    """K2 against its plain version at every L % 32 (lengths that cross a
+    ring window), with row starts at every offset mod 16, and batches that
+    are not a multiple of the 16 chains of a block."""
+    from minio_tpu_torch.ops import hh256_gpu
+
+    worst = 0
+    for rem in range(32):
+        L = 32 * 17 + rem
+        c = torch.from_numpy(rng.integers(0, 256, (37, L + 3),
+                                          dtype=np.uint8)).to(dev)
+        for rows in (c[:, :L].contiguous(), c[:, 1:L + 1]):
+            e = max_err(torch, hh256_gpu.hash_chunks(rows),
+                        hh256_gpu.hash_chunks_plain(rows))
+            check(e == 0, f"hh256 L={L}: kernel != plain")
+            worst = max(worst, e)
+    L = 32 * 40 + 13
+    for B in (1, 17, 33):
+        wide = torch.from_numpy(rng.integers(0, 256, (B, L + 16),
+                                             dtype=np.uint8)).to(dev)
+        for off in range(16):
+            rows = wide[:, off:off + L]
+            e = max_err(torch, hh256_gpu.hash_chunks(rows),
+                        hh256_gpu.hash_chunks_plain(rows))
+            check(e == 0, f"hh256 B={B} offset {off}: kernel != plain")
+            worst = max(worst, e)
+    return worst
+
+
 # -- S3 Select (kernel X2) ---------------------------------------------------
 
 # Literals exact in float32 (a plan with any other literal is not kernel
@@ -516,8 +591,12 @@ def main() -> None:
                 rs_gpu.gf_apply_plain(bm84.dense, x))
     errs["gf_apply"] = max(errs["gf_apply"], e)
     check(e == 0, "gf_apply full width: kernel != plain")
-    log(f"[kernels] gf_apply == plain for 6 (k, m), S up to 1310720, "
-        f"2-D/3-D, decode ({time.perf_counter() - t0:.1f} s)")
+    errs["gf_apply"] = max(errs["gf_apply"], gf_layout_checks(np, torch,
+                                                              dev, rng))
+    log(f"[kernels] gf_apply == plain for 6 (k, m), S up to 1310720 (16-byte "
+        f"and byte paths, ragged S), rows at offsets 1..15, 2-D/3-D, both "
+        f"output layouts, decode, random r = 12 matrix "
+        f"({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
     for L in (1, 31, 32, 33, 4096 + 17, 65536 + 5):
@@ -541,9 +620,11 @@ def main() -> None:
     for b in range(2):
         check(got[b].tobytes() == hh256.hh256(two[b].tobytes()),
               "hh256 at L=873814 != host reference")
-    log(f"[kernels] hh256 == plain for L in 1..65541 (aligned and odd row "
-        f"starts), == host hh256 at L=873814 "
-        f"({time.perf_counter() - t0:.1f} s)")
+    errs["hh256"] = max(errs["hh256"], hh_layout_checks(np, torch, dev,
+                                                          rng))
+    log(f"[kernels] hh256 == plain for L in 1..65541, every L % 32, row "
+        f"starts at every offset mod 16, B in 1..64 (not multiples of 16), "
+        f"== host hh256 at L=873814 ({time.perf_counter() - t0:.1f} s)")
 
     # 4. Golden pins through the kernels.
     data = pattern(np, 65536)
@@ -590,6 +671,7 @@ def main() -> None:
     log(f"[full_step] 8+4 B=32 S=1310720: mismatch 0, step {step_ms} ms "
         f"wall (inputs {t_inputs:.2f} s on the host)")
     del out
+    hh_before_6 = hh256_gpu.hash_chunks_cuda.launches
 
     # 6. PUT -> degraded GET -> heal at deployment size: 12+4, 10 MiB
     #    blocks, a seeded 256 MiB + 3 MiB object (25 full blocks + tail).
@@ -692,9 +774,14 @@ def main() -> None:
     else:
         log("[data plane] device time: not measured (the profiler "
             "reported no device time)")
-    log(f"[main path] {main_s} s, launches {launches}")
+    hh_phase6 = launches["hh256"] - hh_before_6
+    log(f"[main path] {main_s} s, launches {launches}; hh256 launches in "
+        f"phase 6: {hh_phase6} (PUT full + PUT tails + GET full + GET "
+        f"tails)")
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the path never launched: {launches}")
+    check(hh_phase6 == 4, f"phase 6 launched hh256 {hh_phase6} times, "
+          f"want 4")
     del full, full_sm, frames, files, blocks, rebuilt, healed, datas
 
     # 7. Times at the main-path shapes.
@@ -712,19 +799,71 @@ def main() -> None:
         else "operations"
     del ok1
 
+    # K1 at phase 6's shape: shard-major encode of (25, 12, 873814), whose
+    # rows are not 16-byte aligned (the byte path).
+    bm124 = rs_gpu.placed_parity(k, m, dev)
+    x6 = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, (nfull, k, S), dtype=np.uint8)).to(dev)
+    o6 = torch.empty((k + m, nfull, S), dtype=torch.uint8, device=dev)
+    k1_p6_ms = events_ms(torch, lambda: rs_gpu.gf_apply_cuda(
+        bm124, x6, o6, S, nfull * S, k, True))
+    k1_p6_bound = (nfull * S * (2 * k + m)) / HBM_BPS * 1e3
+    del x6, o6
+
     HB, HL = (k + m) * nfull, S
     rows = torch.from_numpy(np.random.default_rng(2).integers(
         0, 256, (HB, HL), dtype=np.uint8)).to(dev)
     k2_ms = events_ms(torch, lambda: hh256_gpu.hash_chunks_cuda(
         rows, hh256.MAGIC_KEY))
+    # The plain version on the first 32 rows (rows are independent chains;
+    # its time is launch-bound, one torch op per step of the chain).
+    PB = 32
     t0 = time.perf_counter()
-    plain_digs = hh256_gpu.hash_chunks_plain(rows)
+    plain_digs = hh256_gpu.hash_chunks_plain(rows[:PB])
     torch.cuda.synchronize()
     k2_plain_ms = (time.perf_counter() - t0) * 1e3
-    e = max_err(torch, hh256_gpu.hash_chunks_cuda(rows, hh256.MAGIC_KEY),
-                plain_digs)
+    full_digs = hh256_gpu.hash_chunks_cuda(rows, hh256.MAGIC_KEY)
+    lone = hh256_gpu.hash_chunks_cuda(rows[:1], hh256.MAGIC_KEY)
+    e = max(max_err(torch, full_digs[:PB], plain_digs),
+            max_err(torch, lone, plain_digs[:1]))
     errs["hh256"] = max(errs["hh256"], e)
-    check(e == 0, "hh256 at the main-path shape: kernel != plain")
+    check(e == 0, "hh256 at the main-path shape (and its lone chain): "
+          "kernel != plain")
+    # A PUT's tails: 16 rows of 262,144 bytes, as a batch and one alone.
+    TL = tail.shape[1]
+    tails = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (k + m, TL), dtype=np.uint8)).to(dev)
+    tails_plain = hh256_gpu.hash_chunks_plain(tails)
+    e = max(max_err(torch, hh256_gpu.hash_chunks_cuda(tails,
+                                                      hh256.MAGIC_KEY),
+                    tails_plain),
+            max_err(torch, hh256_gpu.hash_chunks_cuda(tails[5:6],
+                                                      hh256.MAGIC_KEY),
+                    tails_plain[5:6]))
+    errs["hh256"] = max(errs["hh256"], e)
+    check(e == 0, f"hh256 at ({k + m}, {TL}) and (1, {TL}): kernel != plain")
+    k2_tails_ms = events_ms(torch, lambda: hh256_gpu.hash_chunks_cuda(
+        tails, hh256.MAGIC_KEY))
+    lone_ms = events_ms(torch, lambda: hh256_gpu.hash_chunks_cuda(
+        rows[:1], hh256.MAGIC_KEY))
+    lone_tail_ms = events_ms(torch, lambda: hh256_gpu.hash_chunks_cuda(
+        tails[:1], hh256.MAGIC_KEY))
+    # A lone chain of 262,144 bytes (a 3 MiB tail block over 12 shards),
+    # against the host reference.
+    short = tails[:1, :262144]
+    check(hh256_gpu.hash_chunks_cuda(short, hh256.MAGIC_KEY).cpu().numpy()
+          .tobytes() == hh256.hh256(short.cpu().numpy().tobytes()),
+          "hh256 lone chain at L=262144 != host hh256")
+    lone_short_ms = events_ms(torch, lambda: hh256_gpu.hash_chunks_cuda(
+        short, hh256.MAGIC_KEY))
+    # The PUT's tail hashing, both dispatches in this run: the 16 tails in
+    # one batch (digest_chunks_many) and one batch per tail (as before).
+    tail_streams = [tail[j].tobytes() for j in range(k + m)]
+    batched_ms = wall_ms(torch, lambda: bitrot.digest_chunks_many(
+        bitrot.DEFAULT_ALGORITHM, tail_streams, S, device=dev), runs=5)
+    one_by_one_ms = wall_ms(torch, lambda: [
+        bitrot.digest(bitrot.DEFAULT_ALGORITHM, t, dev)
+        for t in tail_streams], runs=5)
     n_updates = HL // 32 + (1 if HL % 32 else 0) + 10
     k2_bytes = HB * HL + HB * 32
     k2_ops = HB * n_updates * HH_OPS_PER_UPDATE
@@ -733,9 +872,21 @@ def main() -> None:
         else "operations"
     log(f"[times] gf_apply (32, 8->12, 1310720): {k1_ms} ms, bound "
         f"{k1_bound} ms ({k1_by}), plain {k1_plain_ms} ms")
+    log(f"[times] gf_apply at phase 6's shape, shard-major (25, 12->16, "
+        f"{S}), byte path: {k1_p6_ms} ms, byte bound {k1_p6_bound} ms")
     log(f"[times] hh256 ({HB}, {HL}): {k2_ms} ms, bound "
-        f"{k2_bound} ms ({k2_by}), plain {k2_plain_ms} ms "
-        f"(same shape, also compared byte-exact)")
+        f"{k2_bound} ms ({k2_by}), plain {k2_plain_ms} ms on the first "
+        f"{PB} rows (compared byte-exact there)")
+    log(f"[times] hh256 PUT tails ({k + m}, {TL}): {k2_tails_ms} ms")
+    log(f"[times] hh256 lone chain (1, {HL}): {lone_ms} ms, "
+        f"{lone_ms * 1e6 / (HL / 32)} ns per 32-byte packet; (1, {TL}): "
+        f"{lone_tail_ms} ms, {lone_tail_ms * 1e6 / (TL / 32)} ns per packet; "
+        f"(1, 262144): {lone_short_ms} ms, "
+        f"{lone_short_ms * 1e6 / (262144 / 32)} ns per packet")
+    log(f"[times] PUT tail hashing, wall incl. copies, median of 5: {k + m} "
+        f"tails of {TL} B in one hash_chunks call (digest_chunks_many) "
+        f"{batched_ms} ms; one call per tail (digest x {k + m}) "
+        f"{one_by_one_ms} ms")
 
     # 8.-10. The S3 Select slice: X2 against its plain version, the
     #        SelectObjectContent path on a 256 MiB Parquet object, times.
@@ -762,7 +913,8 @@ def main() -> None:
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
          "library_ms": None,
          "shape": f"hash_chunks ({HB}, {HL}) -> ({HB}, 32)",
-         "plain_shape": "the same",
+         "plain_shape": f"({PB}, {HL}), the first {PB} rows",
+         "lone_chain_ns_per_packet": lone_ms * 1e6 / (HL / 32),
          "library_note": "no PyTorch call computes HighwayHash"},
         {"name": "select_scan", "route": "cuda",
          "source": "minio_tpu_torch/csrc/select_scan.cu",

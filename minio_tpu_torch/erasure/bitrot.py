@@ -7,7 +7,8 @@ Port of minio_tpu/erasure/bitrot.py. Two modes (ref cmd/bitrot.go:99-111):
 - whole-file (legacy): one checksum over the whole shard.
 
 Every HighwayHash goes through ops/hh256_gpu.hash_chunks on ``device``:
-equal-length rows as one batch, a ragged tail frame as a batch of one. On
+equal-length rows as one batch (the ragged tail frames of many streams
+too, one batch per tail length; a lone frame is a batch of one). On
 ``device="cuda"`` (the default) that is the CUDA kernel; on ``"cpu"`` its
 plain PyTorch version. SHA256 and BLAKE2b stay on hashlib, as in the
 reference. Data goes in and comes out as bytes / numpy arrays.
@@ -95,27 +96,34 @@ def digest_chunks(algo: str, data: bytes, chunk_size: int,
 def digest_chunks_many(algo: str, streams: list[bytes], chunk_size: int,
                        device="cuda") -> list[list[bytes]]:
     """Per-stream chunk digests, with all full chunks of all streams
-    hashed in ONE batch; each ragged tail chunk is a batch of one."""
+    hashed in ONE batch and the ragged tail chunks in one batch per tail
+    length (a PUT's tails share a length: one batch). The digests are the
+    JAX package's, which hashes the tails one by one on the host."""
     full_counts = [len(s) // chunk_size for s in streams]
-    digs = None
-    if algo in _HH and sum(full_counts):
+    if algo not in _HH:
+        return [[digest(algo, s[i * chunk_size:(i + 1) * chunk_size],
+                        device) for i in range(-(-len(s) // chunk_size))]
+                for s in streams]
+    out: list[list[bytes]] = [[] for _ in streams]
+    if sum(full_counts):
         stacked = np.concatenate([
             _as_array(s)[:nf * chunk_size].reshape(nf, chunk_size)
             for s, nf in zip(streams, full_counts) if nf])
         digs = _hh_rows(stacked, device)
-    out: list[list[bytes]] = []
-    row = 0
-    for s, nf in zip(streams, full_counts):
-        if digs is not None:
-            hs = [digs[row + i].tobytes() for i in range(nf)]
-        else:
-            hs = [digest(algo, s[i * chunk_size:(i + 1) * chunk_size],
-                         device) for i in range(nf)]
-        row += nf
-        tail = s[nf * chunk_size:]
-        if len(tail):
-            hs.append(digest(algo, tail, device))
-        out.append(hs)
+        row = 0
+        for hs, nf in zip(out, full_counts):
+            hs.extend(digs[row + i].tobytes() for i in range(nf))
+            row += nf
+    by_len: dict[int, list[int]] = {}
+    for i, (s, nf) in enumerate(zip(streams, full_counts)):
+        if len(s) > nf * chunk_size:
+            by_len.setdefault(len(s) - nf * chunk_size, []).append(i)
+    for idxs in by_len.values():
+        tails = np.stack([_as_array(streams[i])[full_counts[i] * chunk_size:]
+                          for i in idxs])
+        digs = _hh_rows(tails, device)
+        for row, i in enumerate(idxs):
+            out[i].append(digs[row].tobytes())
     return out
 
 

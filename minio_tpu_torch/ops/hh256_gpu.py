@@ -2,9 +2,10 @@
 
 Port of minio_tpu/ops/hh256_tpu.py. The hash is a serial chain per chunk,
 so the batch is the parallelism: B equal-length chunks hash in lockstep,
-one chunk per CUDA thread with native u64 state (csrc/hh256.cu). The
-remainder packet (len % 32 bytes) is built inside the kernel with the
-byte layout of ops/hh256.py ``_update_remainder``.
+two CUDA threads per chunk (one for each half of the native u64 state),
+the chunk's bytes staged through shared memory ahead of the hash
+(csrc/hh256.cu). The remainder packet (len % 32 bytes) is built inside
+the kernel with the byte layout of ops/hh256.py ``_update_remainder``.
 
 ``hash_chunks`` runs where its input lies: on a CUDA tensor it launches
 the kernel (or raises); on a CPU tensor it runs ``hash_chunks_plain``, the

@@ -5,8 +5,8 @@ matrix lowers to an (8r, 8k) 0/1 matrix over GF(2)
 (gf256.gf_matrix_to_bitplane); applying it to shard bytes is one kernel
 launch (csrc/gf_apply.cu) that serves encode, reconstruct and heal — only
 the matrix differs. The matrix is a run-time argument, packed once per
-(k, m) or (k, m, available, missing) into u64 row masks and cached per
-device (the counterpart of rs_tpu._placed_parity / _placed_any_decode).
+(k, m) or (k, m, available, missing) into the kernel's C words and cached
+per device (the counterpart of rs_tpu._placed_parity / _placed_any_decode).
 
 Every function that takes a tensor runs where the tensor lies: on a CUDA
 tensor it launches the kernel (or raises); on a CPU tensor it runs the
@@ -59,27 +59,30 @@ def any_decode_bitplane(k: int, m: int, available: tuple[int, ...],
 
 
 def pack_bitplane(big_m) -> np.ndarray:
-    """(8r, 8k) 0/1 matrix -> (8r, ceil(k/8)) int64 row masks.
+    """(8r, 8k) 0/1 matrix -> (8k, r rounded up to 4) int32 C words.
 
-    Bit j*8+a of a row (input byte j, bit a) lands in word j // 8 at bit
-    (j % 8)*8 + a: the k input bytes of one byte column, read as
-    little-endian u64 words, line up with the mask bits."""
-    bits = (np.asarray(big_m) != 0).astype(np.uint8)
+    Word [j*8 + a, i] holds, in each of its four bytes, the byte
+    sum_b big_m[i*8 + b, j*8 + a] << b: the bits of output byte i that
+    bit a of input byte j feeds. The kernel ANDs it with the full-byte
+    mask of bit a of four input columns and XORs the result into output
+    row i (csrc/gf_apply.cu); columns past r are zero."""
+    bits = (np.asarray(big_m) != 0).astype(np.uint32)
     rows, cols = bits.shape
     if cols % 8 or rows % 8:
         raise ValueError(f"bit-plane matrix shape {bits.shape} is not "
                          "(8r, 8k)")
-    k = cols // 8
-    w = -(-k // 8)
-    buf = np.zeros((rows, w * 8), dtype=np.uint8)
-    buf[:, :k] = np.packbits(bits, axis=1, bitorder="little")
-    return buf.view("<i8").copy()
+    r = rows // 8
+    weights = (1 << np.arange(8, dtype=np.uint32))[None, :, None]
+    col_bytes = (bits.reshape(r, 8, cols) * weights).sum(axis=1)  # (r, 8k)
+    out = np.zeros((cols, -(-r // 4) * 4), dtype=np.uint32)
+    out[:, :r] = col_bytes.T * np.uint32(0x01010101)
+    return out.view(np.int32)
 
 
 class BitMatrix:
     """A bit-plane matrix placed on one device: the dense float32 form the
-    plain version multiplies with and the packed row masks the kernel
-    reads."""
+    plain version multiplies with and the packed C words the kernel
+    reads (``pack_bitplane``)."""
 
     __slots__ = ("dense", "packed", "r", "k")
 

@@ -144,3 +144,45 @@ def test_verify_frames_flags_corruption():
     assert not bitrot.verify_stream(bytes(framed), 128, device=CPU)
     with pytest.raises(bitrot.BitrotMismatch):
         bitrot.extract_block(bytes(framed), 0, 128, 128, device=CPU)
+
+
+@pytest.mark.parametrize("tails", [(300, 300, 300, 300), (300, 17, 300, 0),
+                                   (5, 6, 7, 8)])
+def test_digest_chunks_many_batches_tails(monkeypatch, tails):
+    """Full chunks of all streams hash in one hash_chunks call and the
+    ragged tails in one call per distinct tail length; the digests equal
+    the JAX package's, which hashes each tail on its own."""
+    from minio_tpu_torch.ops import hh256_gpu
+
+    chunk = 512
+    streams = [_rand(40 + i, (2 + i) * chunk + t)
+               for i, t in enumerate(tails)]
+    calls = []
+    real = hh256_gpu.hash_chunks
+
+    def counting(rows, key):
+        calls.append(tuple(rows.shape))
+        return real(rows, key)
+
+    monkeypatch.setattr(hh256_gpu, "hash_chunks", counting)
+    got = bitrot.digest_chunks_many(bitrot.DEFAULT_ALGORITHM, streams,
+                                    chunk, device=CPU)
+    assert got == ref_bitrot.digest_chunks_many(
+        ref_bitrot.DEFAULT_ALGORITHM, streams, chunk)
+    assert len(calls) == 1 + len({t for t in tails if t})
+    assert calls[0] == (sum(2 + i for i in range(len(tails))), chunk)
+
+
+def test_encode_streams_tails_only_one_call(monkeypatch):
+    """A PUT's tail shards (no full chunk, one shared length) hash in one
+    call, and frame byte-identically to the JAX package."""
+    from minio_tpu_torch.ops import hh256_gpu
+
+    streams = [_rand(60 + j, 700) for j in range(16)]
+    calls = []
+    real = hh256_gpu.hash_chunks
+    monkeypatch.setattr(hh256_gpu, "hash_chunks",
+                        lambda rows, key: calls.append(1) or real(rows, key))
+    assert bitrot.encode_streams(streams, 1024, device=CPU) == \
+        ref_bitrot.encode_streams(streams, 1024)
+    assert len(calls) == 1

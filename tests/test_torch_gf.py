@@ -166,16 +166,92 @@ def test_rs_cpu_oracle_equals_reference():
 
 
 def test_pack_bitplane_layout():
-    """Bit a of input byte j sits at bit (j % 8)*8 + a of word j // 8."""
+    """Word [j*8 + a, i] holds, in all four bytes, the bits of output byte
+    i that bit a of input byte j feeds; columns past r are zero."""
     k, m = 11, 2
     bm = rs_gpu.parity_bitplane(k, m)
-    packed = rs_gpu.pack_bitplane(bm).view(np.uint64)
-    assert packed.shape == (8 * m, 2)
-    for row in range(8 * m):
-        for col in range(8 * k):
-            j, a = divmod(col, 8)
-            bit = (int(packed[row, j // 8]) >> ((j % 8) * 8 + a)) & 1
-            assert bit == int(bm[row, col])
+    packed = rs_gpu.pack_bitplane(bm).view(np.uint32)
+    assert packed.shape == (8 * k, 4)
+    assert not packed[:, m:].any()
+    for col in range(8 * k):
+        for i in range(m):
+            word = int(packed[col, i])
+            byte = word & 0xFF
+            assert word == byte * 0x01010101
+            for b in range(8):
+                assert (byte >> b) & 1 == int(bm[i * 8 + b, col])
+
+
+# --- a numpy model of csrc/gf_apply.cu's arithmetic ---------------------------
+
+
+def _sign_bytes(y: np.ndarray) -> np.ndarray:
+    """PRMT with selector 0xBA98: each byte of y becomes 0xFF when its bit
+    7 is set, else 0."""
+    out = np.zeros_like(y)
+    for q in range(4):
+        bit = (y >> np.uint32(8 * q + 7)) & np.uint32(1)
+        out |= (bit * np.uint32(0xFF)) << np.uint32(8 * q)
+    return out
+
+
+def _model_gf_apply(big_m: np.ndarray, data: np.ndarray) -> np.ndarray:
+    """The kernel's scheme on (B, k, S) uint8: columns packed four to a
+    u32 word (S padded to the thread's 16 columns), M_{j,a} = bit a of
+    every byte as a full-byte mask, out_i ^= M_{j,a} & C[j*8 + a, i], in
+    passes of up to 8 output rows. Returns (B, r, S)."""
+    ctab = rs_gpu.pack_bitplane(big_m).view(np.uint32)
+    r = big_m.shape[0] // 8
+    B, k, S = data.shape
+    x = np.zeros((B, k, -(-S // 16) * 16), np.uint8)
+    x[..., :S] = data
+    w = x.view("<u4")
+    out = np.zeros((B, r, w.shape[-1]), np.uint32)
+    for i0 in range(0, r, 8):
+        for j in range(k):
+            for a in range(8):
+                m = _sign_bytes(w[:, j] << np.uint32(7 - a))
+                for i in range(i0, min(r, i0 + 8)):
+                    out[:, i] ^= m & ctab[j * 8 + a, i]
+    return out.view(np.uint8)[..., :S]
+
+
+def _jax_gf_apply(bm: np.ndarray, data: np.ndarray) -> np.ndarray:
+    return np.asarray(rs_tpu.gf_apply(jnp.asarray(bm), jnp.asarray(data)))
+
+
+@pytest.mark.parametrize("k,m,S", [(2, 1, 1), (4, 2, 37), (8, 4, 160),
+                                   (12, 4, 131), (16, 4, 15), (20, 3, 33),
+                                   (40, 5, 47)])
+def test_model_parity_equals_jax(k, m, S):
+    rng = np.random.default_rng(200 + k)
+    data = rng.integers(0, 256, (2, k, S)).astype(np.uint8)
+    bm = rs_tpu.parity_bitplane(k, m)
+    assert np.array_equal(_model_gf_apply(bm, data), _jax_gf_apply(bm, data))
+
+
+@pytest.mark.parametrize("k,m", [(8, 4), (12, 4), (40, 5)])
+def test_model_decode_equals_jax(k, m):
+    rng = np.random.default_rng(300 + k)
+    missing = (0, 5, k + 1)
+    avail = tuple(i for i in range(k + m) if i not in missing)
+    bm, used = rs_tpu.any_decode_bitplane(k, m, avail, missing)
+    data = rng.integers(0, 256, (2, k, 53)).astype(np.uint8)
+    full = rs_gpu.encode_batch(data, k, m, device="cpu")
+    got = _model_gf_apply(bm, full[:, list(used)])
+    assert np.array_equal(got, full[:, list(missing)])
+    assert np.array_equal(got, _jax_gf_apply(bm, full[:, list(used)]))
+
+
+@pytest.mark.parametrize("r,k", [(1, 3), (9, 5), (12, 40), (17, 2)])
+def test_model_any_bitplane_matrix_equals_jax(r, k):
+    """Exact for any 0/1 matrix, r > 8 (several passes) included."""
+    rng = np.random.default_rng(400 + r)
+    bm = rng.integers(0, 2, (8 * r, 8 * k)).astype(np.float32)
+    data = rng.integers(0, 256, (3, k, 29)).astype(np.uint8)
+    want = _jax_gf_apply(bm, data)
+    assert np.array_equal(_model_gf_apply(bm, data), want)
+    assert np.array_equal(_plain(bm, data), want)
 
 
 def test_plain_rejects_wrong_k():
@@ -197,7 +273,7 @@ def cuda_device():
 def test_kernel_equals_plain(cuda_device, k, m):
     rng = np.random.default_rng(k)
     bm = rs_gpu.placed_parity(k, m, cuda_device)
-    for S in (1, 127, 4097):
+    for S in (1, 127, 4097, 4112, 873814):
         x = torch.from_numpy(rng.integers(0, 256, (3, k, S),
                                           dtype=np.uint8))
         want = rs_gpu.encode_blocks(rs_gpu.placed_parity(k, m, CPU), x)
@@ -205,3 +281,28 @@ def test_kernel_equals_plain(cuda_device, k, m):
         assert torch.equal(got, want), (k, m, S)
         got = rs_gpu.encode_blocks_shardmajor(bm, x.to(cuda_device)).cpu()
         assert torch.equal(got, want.transpose(0, 1)), (k, m, S)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("off", [0, 1, 4, 8])
+def test_kernel_unaligned_rows_and_decode(cuda_device, off):
+    """Row starts that are not 16-byte aligned (a view at an offset) and a
+    decode matrix; a random 0/1 matrix with r > 8."""
+    rng = np.random.default_rng(50 + off)
+    k, m, S = 12, 4, 4096
+    wide = torch.from_numpy(rng.integers(0, 256, (2, k, S + 16),
+                                         dtype=np.uint8))
+    x = wide[:, :, off:off + S]
+    bm = rs_gpu.placed_parity(k, m, cuda_device)
+    want = rs_gpu.gf_apply_plain(bm.dense.cpu(), x)
+    assert torch.equal(rs_gpu.gf_apply(bm, x.to(cuda_device)).cpu(), want)
+    missing = (0, 5, 13)
+    avail = tuple(i for i in range(k + m) if i not in missing)
+    dm, used = rs_gpu.placed_any_decode(k, m, avail, missing, cuda_device)
+    full = rs_gpu.encode_blocks(bm, wide.to(cuda_device))
+    got = rs_gpu.gf_apply(dm, full[:, list(used), off:off + S])
+    assert torch.equal(got, full[:, list(missing), off:off + S])
+    big = rng.integers(0, 2, (8 * 12, 8 * 5)).astype(np.float32)
+    y = wide[:, :5, off:off + S]
+    assert torch.equal(rs_gpu.gf_apply(big, y.to(cuda_device)).cpu(),
+                       rs_gpu.gf_apply(big, y))
