@@ -18,7 +18,9 @@ through the port's entry points at deployment size:
 Every phase asserts; any failure exits non-zero. Prints the card, the
 kernels' times beside their bounds, and as its last line
 ``{"ok": true, "device": {...}}``. Needs one card; exits non-zero without
-one, or without the rest of the repository beside it.
+one, or without the rest of the repository beside it. It runs itself once
+more as ``chip_smoke.py --select-trace`` (phase 9's queries under
+torch.profiler, in a process of their own) and waits for it.
 """
 
 import hashlib
@@ -99,6 +101,24 @@ def events_ms(torch, fn, runs: int = 20, warmup: int = 3) -> float:
         e1.record()
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def queued_events_ms(torch, fn, runs: int = 20, per: int = 10) -> float:
+    """Median over `runs` CUDA-event windows of the per-launch device time
+    of `per` back-to-back fn() launches: for a kernel of ~0.1 ms, the host's
+    submission of one launch would otherwise sit between the events."""
+    fn()
+    times = []
+    for _ in range(runs):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(per):
+            fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1) / per)
     return statistics.median(times)
 
 
@@ -210,12 +230,26 @@ def hh_layout_checks(np, torch, dev, rng) -> int:
 # eligible; a minus sign parses as arithmetic).
 EXACT_NUMS = ("0", "1", "3", "7", "12", "40", "0.5", "0.25", "2.125",
               "1.75", "3.5", "16777216", "0.0009765625")
-# Predicates that between them emit every opcode of the program.
+# Predicates that between them emit every opcode of the program (`b IN
+# (i, u, TRUE)` reads i and u only through OP_TOUCH), every stack width
+# (the last two need 2 and 16 words), and the dtype edges.
 EVERY_OPCODE = (
     "f < 0.5", "b = TRUE", "b < f", "f BETWEEN 1 AND 2.125",
     "i NOT IN (3, 7, NULL)", "z IS MISSING", "f IS NOT NULL", "f AND b",
     "NULL OR b", "NOT z", "NOT NULL", "i != i", "f <> f", "NULL = f",
-    "(f > 1 OR b) AND NOT (i BETWEEN NULL AND 7)", "b IN (TRUE, 3)")
+    "(f > 1 OR b) AND NOT (i BETWEEN NULL AND 7)", "b IN (TRUE, 3)",
+    "(f < 1) = b", "(f < 1) BETWEEN FALSE AND TRUE",
+    "(f < 1) IN (TRUE, b, f < 2)", "(i = 3) IS NOT MISSING",
+    "u >= 16777216 OR i < 16777216", "r IN (1, 2, 7) AND u BETWEEN 1 AND 40",
+    "b IN (i, u, TRUE) OR r = 3",
+    "f = 0 OR (f = 1 OR (f = 2 OR (f = 3 OR (f = 4 OR b))))",
+    "f = 0 OR (f = 1 OR (f = 2 OR (f = 3 OR (f = 4 OR (f = 5 OR (f = 6 OR "
+    "(f = 7 OR (f = 8 OR (i = 9 OR b)))))))))")
+# int32 cells at the edges of float32's exact-integer range, and uint32
+# cells past 2^31 (which must not read as negative int32).
+I32_EDGES = (1 << 24, -(1 << 24), (1 << 24) + 1, -(1 << 24) - 1, -(1 << 31),
+             (1 << 31) - 1)
+U32_EDGES = ((1 << 32) - 1, 1 << 31, (1 << 31) + 7, (1 << 24) + 1, 1 << 24)
 SELECT_ROWS = 16_777_216        # 4 REQUIRED 4-byte columns: 256 MiB
 SELECT_ORACLE_ROWS = 65_536
 SELECT_QUERIES = (
@@ -226,13 +260,13 @@ SELECT_QUERIES = (
 
 def gen_pred(rng, depth: int, bare: bool = False) -> str:
     """A random kernel-eligible predicate over f (FLOAT), i (INT32), b
-    (BOOLEAN) and the absent column z."""
+    (BOOLEAN), u (UINT32), r (REQUIRED FLOAT) and the absent column z."""
     def operand(kind):
         if kind == "bool":
             return rng.choice(["b", "TRUE", "FALSE", "b", "z", "NULL"])
         r = rng.random()
         if r < 0.55:
-            return rng.choice(["f", "i", "f", "i", "z"])
+            return rng.choice(["f", "i", "u", "r", "f", "i", "z"])
         return rng.choice(EXACT_NUMS) if r < 0.95 else \
             rng.choice(["NULL", "b", "TRUE"])
 
@@ -250,66 +284,127 @@ def gen_pred(rng, depth: int, bare: bool = False) -> str:
                          for _ in range(rng.randint(1, 4)))
         neg = rng.choice(["", "NOT "])
         return f"{operand('num')} {neg}IN ({opts})"
-    if roll < 0.66:
+    if roll < 0.62:
         mode = rng.choice(["NULL", "NOT NULL", "MISSING", "NOT MISSING"])
-        return f"{rng.choice(['f', 'i', 'b', 'z', 'NULL'])} IS {mode}"
+        return f"{rng.choice(['f', 'i', 'b', 'u', 'z', 'NULL'])} IS {mode}"
+    if roll < 0.68:      # a comparison of computed values: the stack forms
+        op = rng.choice(["=", "<", ">="])
+        return (f"({gen_pred(rng, depth - 1)}) {op} "
+                f"({rng.choice(['b', 'TRUE', gen_pred(rng, depth - 1)])})")
     if roll < 0.74 and bare:
-        return rng.choice(["f", "i", "b", "z"])
+        return rng.choice(["f", "i", "b", "u", "z"])
     if roll < 0.84:
         return f"NOT ({gen_pred(rng, depth - 1, True)})"
     return (f"({gen_pred(rng, depth - 1, True)}) "
             f"{rng.choice(['AND', 'OR'])} ({gen_pred(rng, depth - 1, True)})")
 
 
+def select_batch(np, n: int):
+    """Phase 8's columns: f FLOAT (NULL, MISSING, NaN), i INT32 (NULL, the
+    I32_EDGES), b BOOLEAN (NULL, MISSING), u UINT32 (REQUIRED, the
+    U32_EDGES), r FLOAT (REQUIRED); z is absent."""
+    from minio_tpu_torch.s3select import columnar
+    rng = np.random.default_rng(n)
+    f = (np.round(rng.uniform(-4, 4, n) * 4) / 4).astype(np.float32)
+    f[rng.random(n) < 0.08] = np.nan
+    i = rng.integers(-12, 41, n).astype(np.int32)
+    edge = rng.random(n) < 0.04
+    i[edge] = rng.choice(np.array(I32_EDGES), edge.sum())
+    u = rng.integers(0, 41, n).astype(np.uint32)
+    edge = rng.random(n) < 0.04
+    u[edge] = rng.choice(np.array(U32_EDGES, dtype=np.uint64), edge.sum())
+    cols = {
+        "f": columnar.Column("f", "num", raw=f, null=rng.random(n) < 0.15,
+                             miss=rng.random(n) < 0.08),
+        "i": columnar.Column("i", "num", raw=i, null=rng.random(n) < 0.15,
+                             intish=True),
+        "b": columnar.Column("b", "bool", raw=rng.random(n) < 0.5,
+                             null=rng.random(n) < 0.15,
+                             miss=rng.random(n) < 0.05),
+        "u": columnar.Column("u", "num", raw=u, intish=True),
+        "r": columnar.Column("r", "num",
+                             raw=rng.integers(0, 8, n).astype(np.float32)),
+    }
+    return columnar.ColumnBatch(list(cols), cols, n, 18 * n)
+
+
+def at_offset(torch, t, off: int):
+    """A copy of tensor t whose data starts ``off`` bytes past a 16-byte
+    boundary."""
+    if t is None:
+        return None
+    nbytes = t.numel() * t.element_size()
+    buf = torch.empty(nbytes + 32, dtype=torch.uint8, device=t.device)
+    start = (-buf.data_ptr()) % 16 + off
+    view = buf[start:start + nbytes].view(t.dtype)
+    view.copy_(t)
+    return view
+
+
 def select_kernel_checks(np, torch, dev) -> int:
-    """8. X2 against its plain version on the card, byte for byte, over
-    random eligible plans (every opcode) on FLOAT / INT32 / BOOLEAN
-    columns with NULLs, MISSING cells, NaNs and an absent column."""
+    """8. X2 against its plain version on the card, byte for byte (pass,
+    fallback and the any-fallback flag), over random eligible plans and
+    EVERY_OPCODE, on REQUIRED and OPTIONAL (NULL, MISSING) columns, an
+    absent one, NaN, the int32 and uint32 edges, with every column copied
+    to byte offsets 4, 8 and 12 from a 16-byte boundary (1 and 3 for the
+    byte arrays), and through run_program's copy back to the host."""
     import random
 
+    from minio_tpu_torch.ops import _cuda
     from minio_tpu_torch.ops import select_kernels as sk
-    from minio_tpu_torch.s3select import columnar, compile as comp, sql
+    from minio_tpu_torch.s3select import compile as comp, sql
 
+    stack_words = _cuda.build().select_scan_stack_words
     t0 = time.perf_counter()
-    worst, plans, opcodes = 0, 0, set()
+    worst, plans, launches, opcodes, words = 0, 0, 0, set(), set()
     for n in (1, 31, 32, 33, 65_537, SELECT_ROWS):
-        rng = np.random.default_rng(n)
-        f = (np.round(rng.uniform(-4, 4, n) * 4) / 4).astype(np.float32)
-        f[rng.random(n) < 0.08] = np.nan
-        i = rng.integers(-12, 41, n).astype(np.int32)
-        big = rng.random(n) < 0.02
-        i[big] = 1 << 25
-        batch = columnar.ColumnBatch(["f", "i", "b"], {
-            "f": columnar.Column("f", "num", raw=f, null=rng.random(n) < 0.15,
-                                 miss=rng.random(n) < 0.08),
-            "i": columnar.Column("i", "num", raw=i, null=rng.random(n) < 0.15,
-                                 intish=True),
-            "b": columnar.Column("b", "bool", raw=rng.random(n) < 0.5,
-                                 null=rng.random(n) < 0.15,
-                                 miss=rng.random(n) < 0.05)}, n, 9 * n)
+        batch = select_batch(np, n)
         prng = random.Random(n)
         count = 12 if n == SELECT_ROWS else 40
         srcs = list(EVERY_OPCODE) + [gen_pred(prng, prng.randint(1, 3))
                                      for _ in range(count)]
-        for src in srcs:
+        out = torch.empty((2, n), dtype=torch.bool, device=dev)
+        flag = torch.empty(1, dtype=torch.int32, device=dev)
+        for k, src in enumerate(srcs):
             q = sql.parse(f"SELECT * FROM S3Object WHERE {src}")
             plan = comp.Plan(comp.lower(q.where, batch))
             program = sk.lower_program(plan)
             check(program is not None, f"X2: {src!r} is not eligible")
-            cols, _ = sk.bind_plan(plan, batch)
-            placed = sk.place_columns(cols, n, dev)
-            val, valid = sk.run_program(program, placed, n, dev)
-            pval, pvalid = sk.eval_program_plain(program, placed, n, dev)
-            e = max(max_err(torch, val, pval), max_err(torch, valid, pvalid))
-            check(e == 0, f"X2 n={n} {src!r}: kernel != plain")
-            worst = max(worst, e)
-            opcodes |= set(program.ops[:, 0].tolist())
+            placed = sk.place_columns(sk.bind_columns(plan, batch), dev)
+            ok, fb = sk.eval_program_plain(program, placed, n, dev)
+            layouts = [(0, 0)]
+            if n < SELECT_ROWS or k % 6 == 0:
+                layouts += [(4, 4), (8, 8), (12, 12), (0, 1), (0, 3)]
+            for voff, boff in layouts:
+                cols = [(at_offset(torch, v, voff if code != sk.DT_BOOL
+                                   else boff), code,
+                         at_offset(torch, nu, boff), at_offset(torch, mi, boff))
+                        for v, code, nu, mi in placed]
+                out.fill_(True)
+                sk.select_scan_cuda(program, cols, n, out[0], out[1], flag)
+                launches += 1
+                e = max(max_err(torch, out[0], ok), max_err(torch, out[1], fb))
+                check(e == 0 and bool(flag.item()) == bool(fb.any().item()),
+                      f"X2 n={n} offsets {voff}/{boff} {src!r}: kernel != "
+                      f"plain")
+                worst = max(worst, e)
+            host_ok, host_fb = sk.run_program(program, placed, n, dev)
+            check(np.array_equal(host_ok, ok.cpu().numpy()) and
+                  np.array_equal(host_fb, fb.cpu().numpy()),
+                  f"X2 n={n} {src!r}: run_program's host masks != plain")
+            opcodes |= program.opcodes()
+            words.add(stack_words(program.depth))
             plans += 1
-        del batch, f, i
-    check(opcodes == set(range(sk.OP_NOT + 1)),
-          f"X2 checks missed opcodes {set(range(sk.OP_NOT + 1)) - opcodes}")
-    log(f"[kernels] select_scan == plain for {plans} plans (every opcode) "
-        f"at n in 1..{SELECT_ROWS} ({time.perf_counter() - t0:.1f} s)")
+        del batch, out
+    check(opcodes == set(range(sk.N_OPS)),
+          f"X2 checks missed opcodes {set(range(sk.N_OPS)) - opcodes}")
+    widths = {stack_words(d) for d in range(1, sk.MAX_STACK + 1)}
+    check(words == widths, f"X2 checks ran stack widths {words}, want "
+          f"{widths}")
+    log(f"[kernels] select_scan == plain for {plans} plans ({launches} "
+        f"launches: every opcode, every stack width, column starts at "
+        f"offsets 4/8/12, byte arrays at 1/3) at n in 1..{SELECT_ROWS} "
+        f"({time.perf_counter() - t0:.1f} s)")
     return worst
 
 
@@ -357,8 +452,6 @@ def select_path(np, torch, dev):
     object's decoded batch and query 2's plan, for the times)."""
     import os
 
-    from torch.profiler import ProfilerActivity, profile
-
     from minio_tpu_torch.ops import hh256_gpu, rs_gpu
     from minio_tpu_torch.ops import select_kernels as sk
     from minio_tpu_torch.s3select import columnar, compile as comp, sql
@@ -392,15 +485,12 @@ def select_path(np, torch, dev):
     hh256_gpu.hash_chunks_cuda.launches = 0
     sk.select_scan_cuda.launches = 0
     torch.cuda.synchronize()
-    prof = profile(activities=[ProfilerActivity.CUDA])
-    prof.__enter__()
     bodies, walls = [], []
     for req in reqs:
         t0 = time.perf_counter()
         bodies.append(run_select(req, data, device=dev))
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    prof.__exit__(None, None, None)
     launches = sk.select_scan_cuda.launches
     others = rs_gpu.gf_apply_cuda.launches + \
         hh256_gpu.hash_chunks_cuda.launches
@@ -418,11 +508,13 @@ def select_path(np, torch, dev):
               "256 MiB: card body != CPU body")
         cpu_walls.append((time.perf_counter() - t0) * 1e3)
 
-    us = device_us(prof)
+    trace = traced_select()
+    check(trace["sha256"] == [hashlib.sha256(b).hexdigest() for b in bodies],
+          "the traced queries' bodies != the main path's")
+    us, tw = trace["device_us"], sum(trace["walls"])
     k_us = sum(v for n, v in us.items() if "select_scan_kernel" in n)
     cp_us = sum(v for n, v in us.items() if "memcpy" in n.lower())
     all_us = sum(us.values())
-    wall = sum(walls)
     t0 = time.perf_counter()
     decoded = [list(columnar.parquet_column_batches(data, {"c0", "c1"})),
                list(columnar.parquet_column_batches(data,
@@ -434,24 +526,77 @@ def select_path(np, torch, dev):
         f"{walls[1]} ms wall; CPU lane {cpu_walls[0]} ms, {cpu_walls[1]} "
         f"ms; bodies byte-identical")
     if all_us:
-        log(f"[select] device time (torch.profiler) over both queries: "
+        log(f"[select] device time (torch.profiler, both queries once more "
+            f"in a process of their own, walls there {trace['walls']} ms): "
             f"select_scan kernel {k_us / 1e3} ms, host<->device copies "
-            f"{cp_us / 1e3} ms, all device work {all_us / 1e3} ms of "
-            f"{wall} ms wall (device idle share {1 - all_us / 1e3 / wall}); "
-            f"host Parquet decode of the referenced columns alone "
-            f"{parse_ms} ms; the rest of the wall is host bind, masks and "
-            f"output formatting")
+            f"{cp_us / 1e3} ms, all device work {all_us / 1e3} ms of {tw} "
+            f"ms wall (device idle share {1 - all_us / 1e3 / tw}); host "
+            f"Parquet decode of the referenced columns alone {parse_ms} ms; "
+            f"the rest of the wall is host copies, masks and output "
+            f"formatting")
     else:
-        log("[select] device time: not measured (the profiler reported "
-            "no device time)")
+        log("[select] device time (torch.profiler): not measured (the "
+            "traced process's profiler reported no device time)")
     for q, req in zip(SELECT_QUERIES, reqs):
         parts = host_breakdown(lambda: run_select(req, data, device=dev))
         log(f"[select] where the wall goes (cProfile, one more run of "
             f"{q[:40]!r}...): " + ", ".join(f"{k} {v} ms"
                                             for k, v in parts.items()))
+    h2d = []
+    for q, batches in zip(SELECT_QUERIES, decoded):
+        qplan = comp.Plan(comp.lower(sql.parse(q).where, batches[0]))
+        h2d.append(sum(bound_bytes(sk.bind_columns(qplan, b))
+                       for b in batches))
+    log(f"[select] host->device bytes of the bound columns: query 1 "
+        f"{h2d[0]}, query 2 {h2d[1]}; device->host per query: the "
+        f"{SELECT_ROWS}-byte pass mask (+16), the fallback mask only when "
+        f"the kernel flagged a row")
     batch = decoded[1][0]
     plan = comp.Plan(comp.lower(sql.parse(SELECT_QUERIES[1]).where, batch))
     return launches, batch, plan
+
+
+def traced_select() -> dict:
+    """Phase 9's two 256 MiB queries run once more by ``chip_smoke.py
+    --select-trace`` in a process of its own, whose torch.profiler session
+    is the first of that process (a second session in this one has read no
+    device time). Returns its walls, bodies' sha256 and device µs by
+    event."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--select-trace"], capture_output=True, text=True,
+                          timeout=600)
+    check(proc.returncode == 0, f"chip_smoke.py --select-trace exited "
+          f"{proc.returncode}: {proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def select_trace_main() -> None:
+    """``--select-trace``: the queries of phase 9 over its 256 MiB object,
+    after the same warm-up, under one torch.profiler session; prints one
+    JSON object {"walls": ms, "sha256": of each body, "device_us": by
+    event name}."""
+    np, torch = setup()
+    from torch.profiler import ProfilerActivity, profile
+
+    from minio_tpu_torch.s3select.select import run_select
+
+    dev = torch.device("cuda", 0)
+    small = select_object(np, SELECT_ORACLE_ROWS)
+    data = select_object(np, SELECT_ROWS)
+    reqs = [select_request(q) for q in SELECT_QUERIES]
+    run_select(reqs[1], small, device=dev)      # warm the CUDA context
+    torch.cuda.synchronize()
+    bodies, walls = [], []
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for req in reqs:
+            t0 = time.perf_counter()
+            bodies.append(run_select(req, data, device=dev))
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    print(json.dumps({"walls": walls,
+                      "sha256": [hashlib.sha256(b).hexdigest()
+                                 for b in bodies],
+                      "device_us": device_us(prof)}), flush=True)
 
 
 # Functions of the select path, by (file suffix, name), whose cumulative
@@ -461,9 +606,9 @@ SELECT_STAGES = {
     "parquet decode": ("s3select/columnar.py", "parquet_column_batches"),
     "plan": ("s3select/engine.py", "__init__"),
     "eval_predicate": ("ops/select_kernels.py", "eval_predicate"),
-    "bind": ("ops/select_kernels.py", "bind_plan"),
+    "bind": ("ops/select_kernels.py", "bind_columns"),
     "host->device": ("ops/select_kernels.py", "place_columns"),
-    "kernel launch": ("ops/select_kernels.py", "run_program"),
+    "kernel + masks back": ("ops/select_kernels.py", "run_program"),
     "aggregate": ("s3select/engine.py", "_agg_batch"),
     "project": ("s3select/engine.py", "_emit_batch"),
     "format": ("s3select/readers.py", "format_json"),
@@ -488,38 +633,93 @@ def host_breakdown(fn) -> dict:
     return out
 
 
-def select_times(np, torch, dev, batch, plan) -> dict:
+def ptxas_report(log_text: str, name: str) -> list:
+    """Registers, stack frame and spill bytes of every compiled entry
+    function whose name holds ``name``, from the ptxas -v log."""
+    import re
+
+    out, cur = [], None
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            cur = {"function": line.split("'")[1]} if name in line else None
+            if cur is not None:
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack_frame=int(m[1]), spill_stores=int(m[2]),
+                       spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m[1])
+    return out
+
+
+def bound_bytes(bound: list) -> int:
+    """Bytes of the host arrays bind_columns hands the kernel."""
+    return sum(a.nbytes for v, _, nu, mi in bound for a in (v, nu, mi)
+               if a is not None)
+
+
+def select_times(np, torch, dev, batch, plan, ptxas_log: str) -> dict:
     """10. X2 at the main path's shape (query 2 over 16,777,216 rows):
-    CUDA events, median of 20, beside its byte bound and the plain
-    version on the card."""
+    CUDA events, median of 20 windows of 10 queued launches (with the
+    any-fallback word's memset), beside its byte bound (the raw
+    columns, their masks and the two output masks), the old 6c + 2 bytes
+    a row formula, the plain version on the card and the ptxas report."""
     from minio_tpu_torch.ops import select_kernels as sk
 
     n = batch.nrows
     program = sk.lower_program(plan)
-    cols, _ = sk.bind_plan(plan, batch)
-    placed = sk.place_columns(cols, n, dev)
-    out_val = torch.empty(n, dtype=torch.bool, device=dev)
-    out_valid = torch.empty(n, dtype=torch.bool, device=dev)
-    ms = events_ms(torch, lambda: sk.select_scan_cuda(
-        program, placed, n, out_val, out_valid))
+    bound = sk.bind_columns(plan, batch)
+    placed = sk.place_columns(bound, dev)
+    out = torch.empty((2, n), dtype=torch.bool, device=dev)
+    flag = torch.empty(1, dtype=torch.int32, device=dev)
+    args = sk.select_scan_args(program, placed, n, out[0], out[1], flag)
+    ms = queued_events_ms(torch, lambda: sk.launch_select_scan(args))
     plain_ms = events_ms(torch, lambda: sk.eval_program_plain(
         program, placed, n, dev), runs=5, warmup=1)
-    pval, pvalid = sk.eval_program_plain(program, placed, n, dev)
-    check(torch.equal(out_val, pval) and torch.equal(out_valid, pvalid),
+    ok, fb = sk.eval_program_plain(program, placed, n, dev)
+    check(torch.equal(out[0], ok) and torch.equal(out[1], fb),
           "X2 at the main-path shape: kernel != plain")
-    nbytes = len(placed) * n * (4 + 1 + 1) + 2 * n
-    ops = len(program.ops) * n
-    bound = max(nbytes / HBM_BPS, ops / SCALAR_OPS) * 1e3
+    nbytes = bound_bytes(bound) + 2 * n
+    old_nbytes = len(placed) * n * (4 + 1 + 1) + 2 * n
+    # Row operations: a comparison per leaf pair (2 for BETWEEN, one per
+    # IN option), one per logic instruction, one 2^24 test per int column.
+    ops = n * (sum({sk.OP_BETWEEN: 2, sk.OP_IN: max(c, 1)}.get(w & 0xFF, 1)
+                   for w, _, _, c in program.ops.tolist())
+               + sum(code in (sk.DT_I32, sk.DT_U32) for _, code, _, _ in bound))
+    bound_ms = max(nbytes / HBM_BPS, ops / SCALAR_OPS) * 1e3
     by = "bytes" if nbytes / HBM_BPS >= ops / SCALAR_OPS else "operations"
-    shape = (f"{len(program.ops)}-instruction program over {len(placed)} "
-             f"columns x {n} rows -> 2 x ({n},) bool")
-    log(f"[times] select_scan ({shape}): {ms} ms, bound {bound} ms ({by}), "
-        f"plain {plain_ms} ms")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": by, "shape": shape}
+    old_bound_ms = old_nbytes / HBM_BPS * 1e3
+    report = ptxas_report(ptxas_log, "select_scan_kernel")
+    check(len(report) == 3, f"ptxas report of select_scan_kernel: {report}")
+    for fn in report:
+        check(fn.get("stack_frame") == 0 and fn.get("spill_stores") == 0 and
+              fn.get("spill_loads") == 0,
+              f"select_scan_kernel uses local memory: {fn}")
+    shape = (f"{len(program.ops)}-instruction program (stack depth "
+             f"{program.depth}) over {len(placed)} columns x {n} rows -> "
+             f"(pass, fallback) 2 x ({n},) bool")
+    log(f"[times] select_scan ({shape}): {ms} ms, bound {bound_ms} ms ({by}: "
+        f"{nbytes} B = raw columns + masks + 2 B a row out), old 6c+2 B a "
+        f"row bound {old_bound_ms} ms, plain {plain_ms} ms")
+    log("[times] select_scan ptxas: " + "; ".join(
+        f"{fn['function'][-40:]}: {fn.get('registers')} registers, "
+        f"{fn.get('stack_frame')} B stack frame, {fn.get('spill_stores')} B "
+        f"spill stores, {fn.get('spill_loads')} B spill loads"
+        for fn in report))
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by, "bound_old_formula_ms": old_bound_ms,
+            "shape": shape, "ptxas": report}
 
 
-def main() -> None:
+def setup():
+    """(numpy, torch) once a card and the port beside this file are
+    there; exits non-zero otherwise."""
     import numpy as np
     import torch
 
@@ -529,6 +729,11 @@ def main() -> None:
     if not (here / "minio_tpu_torch" / "csrc" / "gf_apply.cu").exists():
         fail("minio_tpu_torch/ is not beside chip_smoke.py")
     sys.path.insert(0, str(here))
+    return np, torch
+
+
+def main() -> None:
+    np, torch = setup()
     from minio_tpu_torch.erasure import bitrot
     from minio_tpu_torch.erasure.codec import Erasure
     from minio_tpu_torch.models import ec_pipeline
@@ -829,7 +1034,7 @@ def main() -> None:
     errs["hh256"] = max(errs["hh256"], e)
     check(e == 0, "hh256 at the main-path shape (and its lone chain): "
           "kernel != plain")
-    # A PUT's tails: 16 rows of 262,144 bytes, as a batch and one alone.
+    # A PUT's tails: 16 rows of 786,432 bytes, as a batch and one alone.
     TL = tail.shape[1]
     tails = torch.from_numpy(np.random.default_rng(4).integers(
         0, 256, (k + m, TL), dtype=np.uint8)).to(dev)
@@ -892,7 +1097,7 @@ def main() -> None:
     #        SelectObjectContent path on a 256 MiB Parquet object, times.
     x2_err = select_kernel_checks(np, torch, dev)
     x2_launches, batch, plan = select_path(np, torch, dev)
-    x2 = select_times(np, torch, dev, batch, plan)
+    x2 = select_times(np, torch, dev, batch, plan, lib.ptxas_log)
 
     kernels = [
         {"name": "gf_apply", "route": "cuda",
@@ -922,6 +1127,8 @@ def main() -> None:
          "launches": x2_launches, "max_abs_err": x2_err, "ms": x2["ms"],
          "plain_ms": x2["plain_ms"], "bound_ms": x2["bound_ms"],
          "bound_by": x2["bound_by"], "library_ms": None,
+         "bound_old_formula_ms": x2["bound_old_formula_ms"],
+         "ptxas": x2["ptxas"],
          "shape": x2["shape"], "plain_shape": "the same",
          "library_note": "no single PyTorch call computes a predicate "
                          "program"},
@@ -935,4 +1142,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--select-trace"]:
+        select_trace_main()
+    else:
+        main()

@@ -48,8 +48,12 @@ _SIGNATURES = {
                         _I, _I64, _I64, _P),
     # data, row_stride, B, L, key0..key3, out, stream
     "hh256_launch": (_P, _I64, _I64, _I64, _U64, _U64, _U64, _U64, _P, _P),
-    # prog, n_ops, pool, cols, ncols, n, out_val, out_valid, stream
-    "select_scan_launch": (_P, _I, _P, _P, _I, _I64, _P, _P, _P),
+    # prog, n_ops, pool, args, cols, ncols, n, depth, out_pass, out_fb,
+    # any_fb, stream
+    "select_scan_launch": (_P, _I, _P, _P, _P, _I, _I64, _I, _P, _P, _P,
+                           _P),
+    # depth -> the stack's 32-bit words in the kernel (0: too deep)
+    "select_scan_stack_words": (_I,),
 }
 
 

@@ -1,11 +1,14 @@
 """Columnar S3 Select in the port, held to the JAX package.
 
 - The predicate program (ops/select_kernels.py: ``lower_program`` +
-  ``bind_plan`` + ``eval_program_plain``, the plain version of the
+  ``bind_columns`` + ``eval_program_plain``, the plain version of the
   predicate-scan kernel) against the JAX package's own ``_bind_jit`` +
-  ``_run_jit`` on the CPU, mask for mask, over randomised jit-eligible
-  predicates on nullable FLOAT / INT32 / BOOLEAN columns with NaNs,
-  MISSING cells and absent columns.
+  ``_run_jit`` on the CPU, (pass, fallback) mask for mask, over
+  randomised jit-eligible predicates on nullable FLOAT / INT32 / BOOLEAN
+  columns with NaNs, MISSING cells and absent columns, over computed
+  operands, and over every dtype the bind takes (int edges at 2^24,
+  uint32 past 2^31). A numpy model of the kernel's scheme (eight rows a
+  thread, 8-bit masks, the bit stacks) is held to the JAX package too.
 - Whole ``run_select(..., device="cpu")`` response bodies against the
   JAX package's ``run_select``, byte for byte, for CSV (ragged, quoted)
   and Parquet (none / snappy / gzip pages), on the columnar engine and on
@@ -22,6 +25,7 @@ from __future__ import annotations
 import ast
 import gzip
 import random
+import re
 from pathlib import Path
 from xml.sax.saxutils import escape
 
@@ -156,45 +160,61 @@ def _plans(src: str, ref_batch, port_batch):
 
 
 def _port_masks(plan, batch):
+    """(pass, fallback) of the port's plain version: lower_program +
+    bind_columns + place_columns + eval_program_plain."""
     program = sk.lower_program(plan)
     assert program is not None
-    bound = sk.bind_plan(plan, batch)
+    bound = sk.bind_columns(plan, batch)
     assert bound is not None
-    cols, fb = bound
-    val, valid = sk.eval_program_plain(
-        program, sk.place_columns(cols, batch.nrows, CPU), batch.nrows, CPU)
-    return val.numpy(), valid.numpy(), fb
+    ok, fb = sk.eval_program_plain(program, sk.place_columns(bound, CPU),
+                                   batch.nrows, CPU)
+    return ok.numpy(), fb.numpy()
+
+
+def _ref_masks(rp, rb, n: int):
+    """(pass, fallback) of the JAX package's jit lane: _bind_jit +
+    _run_jit and ``val & valid & ~fb``. The JAX jit image needs a column
+    to size its masks (the reference fails over to the host lane), so a
+    column-free plan is held to the host evaluation instead."""
+    if not rp.cols:
+        return ref_comp.passing_mask(rp.eval_host(rb), n)[0], \
+            np.zeros(n, dtype=bool)
+    arrs, ref_fb = ref_sk._bind_jit(rp, rb)
+    val, valid = ref_sk._run_jit(rp, arrs, n)
+    return np.asarray(val) & np.asarray(valid) & ~ref_fb, ref_fb
+
+
+def _assert_same(got, want, src):
+    assert np.array_equal(want[0], got[0]), src
+    assert np.array_equal(want[1], got[1]), src
+
+
+# The opcodes _gen_eligible_pred's plans emit (the stack forms and
+# OP_TOUCH come from _EVERY_OPCODE and _gen_computed_pred).
+_GENERATED_OPS = {sk.OP_CMP, sk.OP_BETWEEN, sk.OP_IN, sk.OP_PUSH, sk.OP_AND,
+                  sk.OP_OR, sk.OP_NOT}
 
 
 @pytest.mark.parametrize("seed", range(16))
 def test_program_equals_jax_jit(seed):
-    """lower_program + eval_program_plain == the JAX _bind_jit + _run_jit
-    masks (val, valid) and base fallback mask, on every predicate."""
+    """lower_program + bind_columns + eval_program_plain == the JAX
+    _bind_jit + _run_jit (pass = val & valid & ~fb, and fb), on every
+    predicate: at least 10 plans over columns, and on until they have
+    emitted every opcode the generator reaches."""
     rng = random.Random(seed)
     n = [1, 33, 257, 600][seed % 4]
     rb, pb = _mask_batches(seed, n)
     seen_ops = set()
     checked = 0
-    while checked < 10:
+    while checked < 40 and (checked < 10 or not _GENERATED_OPS <= seen_ops):
         src = _gen_eligible_pred(rng, rng.randint(1, 3))
         rp, pp = _plans(src, rb, pb)
         assert rp.jit_ok and pp.jit_ok, src
-        val, valid, fb = _port_masks(pp, pb)
-        if not rp.cols:
-            # The JAX jit image needs a column to size its masks (the
-            # reference fails over to the host lane); hold the program
-            # to the host evaluation instead.
-            want, _ = ref_comp.passing_mask(rp.eval_host(rb), n)
-            assert np.array_equal(want, val & valid & ~fb), src
-            continue
-        arrs, ref_fb = ref_sk._bind_jit(rp, rb)
-        ref_val, ref_valid = ref_sk._run_jit(rp, arrs, n)
-        assert np.array_equal(np.asarray(ref_val), val), src
-        assert np.array_equal(np.asarray(ref_valid), valid), src
-        assert np.array_equal(ref_fb, fb), src
-        seen_ops |= set(sk.lower_program(pp).ops[:, 0].tolist())
-        checked += 1
-    assert len(seen_ops) >= 6, seen_ops
+        _assert_same(_port_masks(pp, pb), _ref_masks(rp, rb, n), src)
+        if rp.cols:        # column-free plans are held to the host lane
+            seen_ops |= sk.lower_program(pp).opcodes()
+            checked += 1
+    assert _GENERATED_OPS <= seen_ops, seen_ops
 
 
 _EVERY_OPCODE = [
@@ -203,6 +223,13 @@ _EVERY_OPCODE = [
     "f AND b", "NULL OR b", "NOT z", "NOT NULL", "i != i",
     "(f > 1 OR b) AND NOT (i BETWEEN NULL AND 7)", "b IN (TRUE, 3)",
     "f <> f", "NULL = f", "3 >= 3", "TRUE AND z",
+    # A comparison, BETWEEN, IN or IS NULL over a computed value runs on
+    # the stack (OP_*_STACK, OP_IN_END).
+    "(f < 1) = b", "(f < 1) BETWEEN FALSE AND TRUE",
+    "(f < 1) IN (TRUE, b, f < 2)", "(i = 3) IS NOT MISSING",
+    "(f BETWEEN 1 AND 2) >= (b IS NULL)", "NOT ((b IN (TRUE)) <= z)",
+    "b IN (i, TRUE)", "b IN (i, f) AND i IS NULL",
+    "f = 0 OR (f = 1 OR (f = 2 OR (f = 3 OR (f = 4 OR b))))",
 ]
 
 
@@ -211,16 +238,7 @@ def test_program_equals_jax_jit_fixed(src):
     """Hand-picked predicates that between them emit every opcode."""
     rb, pb = _mask_batches(99, 300)
     rp, pp = _plans(src, rb, pb)
-    val, valid, fb = _port_masks(pp, pb)
-    if not rp.cols:
-        want, _ = ref_comp.passing_mask(rp.eval_host(rb), 300)
-        assert np.array_equal(want, val & valid & ~fb)
-        return
-    arrs, ref_fb = ref_sk._bind_jit(rp, rb)
-    ref_val, ref_valid = ref_sk._run_jit(rp, arrs, 300)
-    assert np.array_equal(np.asarray(ref_val), val)
-    assert np.array_equal(np.asarray(ref_valid), valid)
-    assert np.array_equal(ref_fb, fb)
+    _assert_same(_port_masks(pp, pb), _ref_masks(rp, rb, 300), src)
 
 
 def test_fixed_predicates_cover_every_opcode():
@@ -228,9 +246,390 @@ def test_fixed_predicates_cover_every_opcode():
     ops = set()
     for src in _EVERY_OPCODE:
         q = psql.parse(f"SELECT * FROM S3Object WHERE {src}")
-        ops |= set(sk.lower_program(pcomp.Plan(pcomp.lower(q.where, pb)))
-                   .ops[:, 0].tolist())
-    assert ops == set(range(sk.OP_NOT + 1))
+        ops |= sk.lower_program(pcomp.Plan(pcomp.lower(q.where, pb))
+                                ).opcodes()
+    assert ops == set(range(sk.N_OPS))
+    # b IN (i, f): neither option compares with a bool, so no instruction
+    # reads i and f but OP_TOUCH (for i's fallback rows).
+    assert sk.OP_TOUCH in sk.lower_program(pcomp.Plan(pcomp.lower(
+        psql.parse("SELECT * FROM S3Object WHERE b IN (i, f)").where, pb))
+    ).opcodes()
+
+
+def _gen_computed_pred(rng: random.Random, depth: int) -> str:
+    """An eligible predicate whose comparisons, BETWEEN, IN and IS NULL
+    also take computed (bool) operands, which the program keeps on the
+    stack."""
+    if depth <= 0:
+        return _gen_eligible_pred(rng, 1)
+
+    def sub():
+        return f"({_gen_computed_pred(rng, depth - 1)})"
+
+    def bool_operand():
+        return rng.choice([sub(), "b", "TRUE", "FALSE", "NULL", "z", "f"])
+
+    roll = rng.random()
+    if roll < 0.3:
+        op = rng.choice(["=", "!=", "<", "<=", ">", ">="])
+        return f"{sub()} {op} {bool_operand()}"
+    if roll < 0.45:
+        neg = rng.choice(["", "NOT "])
+        return f"{sub()} {neg}BETWEEN {bool_operand()} AND {bool_operand()}"
+    if roll < 0.6:
+        neg = rng.choice(["", "NOT "])
+        opts = ", ".join(bool_operand() for _ in range(rng.randint(1, 3)))
+        value = sub() if rng.random() < 0.7 else rng.choice(["b", "f"])
+        return f"{value} {neg}IN ({opts})"
+    if roll < 0.7:
+        return f"{sub()} IS {rng.choice(['NULL', 'NOT NULL', 'MISSING'])}"
+    if roll < 0.8:
+        return f"NOT {sub()}"
+    return f"{sub()} {rng.choice(['AND', 'OR'])} {sub()}"
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_program_on_the_stack_equals_jax_jit(seed):
+    """Plans whose operands are computed values (the OP_*_STACK forms),
+    against the JAX jit image."""
+    rng = random.Random(500 + seed)
+    n = [7, 64, 301][seed % 3]
+    rb, pb = _mask_batches(500 + seed, n)
+    for _ in range(8):
+        src = _gen_computed_pred(rng, rng.randint(1, 3))
+        rp, pp = _plans(src, rb, pb)
+        assert rp.jit_ok and pp.jit_ok, src
+        _assert_same(_port_masks(pp, pb), _ref_masks(rp, rb, n), src)
+
+
+# Each bound dtype (bind_columns), with values at the edges of float32's
+# exact-integer range: the reference's fallback rows are |v| > 2^24.
+_EDGE_INTS = [0, 1, -1, 7, 40, 1 << 24, -(1 << 24), (1 << 24) + 1,
+              -(1 << 24) - 1, -(1 << 31), (1 << 31) - 1]
+_DTYPES = ["float16", "float32", "int8", "int16", "int32", "uint8",
+           "uint16", "uint32", "bool"]
+_DTYPE_PREDICATES = [
+    "x < 7", "x = 16777216", "x >= 0 AND x <= 40", "x BETWEEN 1 AND 40",
+    "x IN (0, 1, 7, 16777216)", "NOT x", "x OR z", "x IS NULL",
+    "x IS MISSING", "x != x", "x > 0.5 OR x = 3", "(x < 1) = (z < 1)",
+]
+
+
+def _dtype_values(dtype: str, n: int, rng) -> np.ndarray:
+    if dtype == "bool":
+        return rng.random(n) < 0.5
+    dt = np.dtype(dtype)
+    if dt.kind == "f":
+        vals = rng.choice(np.array([0, 1, -1, 0.5, 7, 40, np.nan, 3.5,
+                                    16777216, 2.125]), n)
+        with np.errstate(over="ignore"):    # float16: 2^24 -> inf
+            return vals.astype(dt)
+    info = np.iinfo(dt)
+    base = rng.integers(max(info.min, -12), min(info.max, 41) + 1, n)
+    edges = np.array([v for v in _EDGE_INTS
+                      if info.min <= v <= info.max] + [info.min, info.max])
+    pick = rng.random(n) < 0.3
+    base[pick] = rng.choice(edges, pick.sum())
+    if dtype == "uint32":   # cells past 2^31 must not read as negatives
+        big = rng.random(n) < 0.15
+        base[big] = rng.choice([2 ** 32 - 1, 2 ** 31, 2 ** 31 + 9,
+                                (1 << 24) + 1], big.sum())
+    return base.astype(dt)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_bound_dtypes_equal_jax_jit(dtype):
+    """Every dtype the reference's _bind_jit takes gives its (pass,
+    fallback) masks: ints at +-2^24, +-(2^24 + 1) and INT32_MIN, uint32
+    past 2^31, NaN, REQUIRED and OPTIONAL (NULL, MISSING) columns and an
+    absent one."""
+    n = 131
+    rng = np.random.default_rng(len(dtype))
+    vals = _dtype_values(dtype, n, rng)
+    null = rng.random(n) < 0.2
+    miss = rng.random(n) < 0.1
+    kind = "bool" if dtype == "bool" else "num"
+    intish = np.dtype(dtype).kind in "iu"
+    for masks in ({}, {"null": null}, {"null": null, "miss": miss}):
+        def batch(mod):
+            return mod.ColumnBatch(["x"], {"x": mod.Column(
+                "x", kind, raw=vals, intish=intish, **masks)}, n, 4 * n)
+
+        rb, pb = batch(ref_col), batch(pcol)
+        for src in _DTYPE_PREDICATES:
+            rp, pp = _plans(src, rb, pb)
+            assert sk.bind_columns(pp, pb) is not None, (dtype, src)
+            _assert_same(_port_masks(pp, pb), _ref_masks(rp, rb, n),
+                         (dtype, masks.keys(), src))
+
+
+# -- a numpy model of the kernel's scheme ---------------------------------------
+
+_M32 = np.uint64(0xFFFFFFFF)
+# Rows a thread: the kernel's own kRows, read from its source.
+_R = int(re.search(r"constexpr int kRows = (\d+);",
+                   (Path(sk.__file__).resolve().parent.parent / "csrc" /
+                    "select_scan.cu").read_text())[1])
+
+
+def _stack_words(depth: int) -> int:
+    """The kernel's select_scan_stack_words: 32-bit words of a stack of
+    ``depth`` R-bit entries, 1, 2 or enough for MAX_STACK."""
+    bits = depth * _R
+    return 1 if bits <= 32 else 2 if bits <= 64 else sk.MAX_STACK * _R // 32
+
+
+def _group_words(arr: np.ndarray, n: int) -> np.ndarray:
+    """(G, R) uint32: the 4-byte words of each thread's R rows (the
+    kernel's 16-byte loads), zero past n."""
+    g = -(-n // _R)
+    w = np.zeros(_R * g, dtype=np.uint32)
+    w[:n] = arr.view(np.uint32)
+    return w.reshape(g, _R)
+
+
+def _group_mask(arr, n: int) -> np.ndarray:
+    """(G,) uint64: the kernel's R-bit mask of nonzero bytes (a 4-byte
+    load per four rows, __vcmpne4, the 0x01020408 multiply)."""
+    g = -(-n // _R)
+    m = np.zeros(g, dtype=np.uint64)
+    if arr is None:
+        return m
+    b = np.zeros(_R * g, dtype=np.uint8)
+    b[:n] = np.asarray(arr).view(np.uint8)
+    words = b.view("<u4").astype(np.uint64).reshape(g, _R // 4)
+    for k in range(_R // 4):
+        ones = np.zeros(g, dtype=np.uint64)
+        for r in range(4):
+            byte = (words[:, k] >> np.uint64(8 * r)) & np.uint64(0xFF)
+            ones |= (byte != 0).astype(np.uint64) << np.uint64(8 * r)
+        nib = (((ones * np.uint64(0x01020408)) & _M32) >> np.uint64(24)) \
+            & np.uint64(0xF)
+        m |= nib << np.uint64(4 * k)
+    return m
+
+
+def _pack(rows: np.ndarray) -> np.ndarray:
+    """(G, R) bool -> (G,) uint64 R-bit masks (bit r = row r)."""
+    return (rows.astype(np.uint64) << np.arange(_R, dtype=np.uint64)).sum(
+        axis=1, dtype=np.uint64)
+
+
+class _ModelStack:
+    """The kernel's BitStack<NW>: R-bit entries in NW 32-bit words,
+    shifted by funnel shifts on push and pop."""
+
+    def __init__(self, nw: int, g: int):
+        self.w = [np.zeros(g, dtype=np.uint64) for _ in range(nw)]
+
+    def push(self, e):
+        w, r = self.w, np.uint64(_R)
+        for i in range(len(w) - 1, 0, -1):
+            w[i] = ((w[i] << r) | (w[i - 1] >> (np.uint64(32) - r))) & _M32
+        w[0] = ((w[0] << r) | e) & _M32
+
+    def pop(self):
+        w, r = self.w, np.uint64(_R)
+        e = w[0] & np.uint64((1 << _R) - 1)
+        for i in range(len(w) - 1):
+            w[i] = (w[i] >> r) | ((w[i + 1] << (np.uint64(32) - r)) & _M32)
+        w[-1] = w[-1] >> r
+        return e
+
+
+def _kernel_model(program, bound: list, n: int):
+    """numpy model of csrc/select_scan.cu over bind_columns output:
+    R rows a thread with every flag an R-bit mask, fallback rows found
+    where an int column is read (the unsigned 2^24 test), fused leaf
+    comparisons, the two bit stacks, and the 0x00204081 byte expansion of
+    the stores. Returns (pass, fb) bytes."""
+    g = -(-n // _R)
+    full = np.uint64((1 << _R) - 1)
+    zero = np.zeros(g, np.uint64)
+    cols = []
+    for vals, code, null, miss in bound:
+        if code == sk.DT_ABSENT:
+            cols.append((np.zeros((g, _R), np.float32), zero, np.full(g, full),
+                         zero))
+            continue
+        mi = _group_mask(miss, n)
+        valid = ~(_group_mask(null, n) | mi) & full
+        big = zero
+        if code == sk.DT_BOOL:
+            bits = _group_mask(vals, n)
+            image = ((bits[:, None] >> np.arange(_R, dtype=np.uint64)) & 1
+                     ).astype(np.float32)
+        else:
+            w = _group_words(vals, n)
+            if code == sk.DT_F32:
+                image = w.view(np.float32)
+            elif code == sk.DT_I32:
+                big = _pack(((w.astype(np.uint64) + (1 << 24)) & _M32)
+                            > (2 << 24))
+                image = w.view(np.int32).astype(np.float32)
+            else:
+                big = _pack(w > (1 << 24))
+                image = w.astype(np.float32)
+        cols.append((image, valid, mi, big & valid))
+    fb = zero.copy()
+
+    def leaf(ref):
+        nonlocal fb
+        if ref >= 0:
+            image, valid, mi, big = cols[ref]
+            fb = fb | big
+            return image, valid, mi
+        value, valid = program.pool[~ref]
+        return (np.full((g, _R), value, np.float32),
+                np.full(g, full if valid else 0, np.uint64), zero)
+
+    st = _ModelStack(_stack_words(program.depth), g)
+    sv = _ModelStack(_stack_words(program.depth), g)
+    cmp_bits = [lambda a, b: ~(a ^ b), lambda a, b: a ^ b,
+                lambda a, b: ~a & b, lambda a, b: ~a | b,
+                lambda a, b: a & ~b, lambda a, b: a | ~b]
+    for word, a, b, c in program.ops.tolist():
+        op, code = word & 0xFF, (word >> sk.F_CMP_SHIFT) & 7
+        neg = full if word & sk.F_NEG else np.uint64(0)
+        cmp = [np.equal, np.not_equal, np.less, np.less_equal, np.greater,
+               np.greater_equal][code]
+        with np.errstate(invalid="ignore"):
+            if op == sk.OP_CMP:
+                x, y = leaf(a), leaf(b)
+                v = x[1] & y[1]
+                st.push(_pack(cmp(x[0], y[0])) & v
+                        if word & sk.F_COMPARES else zero)
+                sv.push(v)
+            elif op == sk.OP_BETWEEN:
+                x, lo, hi = leaf(a), leaf(b), leaf(c)
+                vlo, vhi = x[1] & lo[1], x[1] & hi[1]
+                tlo = _pack(x[0] >= lo[0]) & vlo \
+                    if word & sk.F_COMPARES else zero
+                thi = _pack(x[0] <= hi[0]) & vhi \
+                    if word & sk.F_COMPARES_HI else zero
+                st.push(((tlo & thi) ^ neg) & vlo & vhi)
+                sv.push(vlo & vhi)
+            elif op == sk.OP_IN:
+                x = leaf(a)
+                hit = zero
+                for ref in program.args[b:b + c].tolist():
+                    o = leaf(ref)
+                    hit = hit | (_pack(x[0] == o[0]) & o[1])
+                st.push((hit ^ neg) & x[1])
+                sv.push(x[1])
+            elif op == sk.OP_PUSH:
+                x = leaf(a)
+                mode = (word >> sk.F_MODE_SHIFT) & 3
+                if mode in (sk.MODE_ISNULL, sk.MODE_ISMISSING):
+                    t = ~x[1] if mode == sk.MODE_ISNULL else x[2]
+                    st.push((t ^ neg) & full)
+                    sv.push(np.full(g, full))
+                    continue
+                truthy = zero if word & sk.F_NULL_KIND else _pack(x[0] != 0)
+                t = truthy & x[1]
+                if mode == sk.MODE_VALUE:
+                    st.push(t)
+                    sv.push(x[1])
+                else:
+                    st.push(t | x[2])
+                    sv.push(x[1] | x[2])
+            elif op in (sk.OP_CMP_STACK, sk.OP_BETWEEN_STACK, sk.OP_AND,
+                        sk.OP_OR):
+                tb, vb, ta, va = st.pop(), sv.pop(), st.pop(), sv.pop()
+                if op == sk.OP_CMP_STACK:
+                    v = va & vb
+                    t = cmp_bits[code](ta, tb) & v \
+                        if word & sk.F_COMPARES else zero
+                elif op == sk.OP_BETWEEN_STACK:
+                    v = va & vb
+                    t = ((ta & tb) ^ neg) & v
+                elif op == sk.OP_AND:
+                    t = ta & tb
+                    v = (va & ~ta) | (vb & ~tb) | (va & vb)
+                else:
+                    t = ta | tb
+                    v = t | (va & vb)
+                st.push(t & full)
+                sv.push(v & full)
+            elif op == sk.OP_IN_END:
+                hit, _, _, v = st.pop(), sv.pop(), st.pop(), sv.pop()
+                st.push((hit ^ neg) & v)
+                sv.push(v)
+            elif op == sk.OP_ISNULL_STACK:
+                st.pop()
+                v = sv.pop()
+                t = zero if word & sk.F_MISSING else ~v
+                st.push((t ^ neg) & full)
+                sv.push(np.full(g, full))
+            elif op == sk.OP_NOT:
+                t, v = st.pop(), sv.pop()
+                st.push(~t & v & full)
+                sv.push(v)
+            elif op == sk.OP_TOUCH:
+                leaf(a)
+            else:
+                raise AssertionError(f"opcode {op}")
+    fb = fb & _pack(np.arange(_R * g).reshape(g, _R) < n)
+    ok = st.pop() & ~fb & full
+
+    def bytes_of(m):
+        w = np.stack([((m >> np.uint64(4 * k)) & np.uint64(0xF))
+                      * np.uint64(0x00204081) & np.uint64(0x01010101)
+                      for k in range(_R // 4)], axis=1).astype("<u4")
+        return w.view(np.uint8).reshape(-1)[:n].view(bool)
+
+    return bytes_of(ok), bytes_of(fb)
+
+
+def _deep_pred(k: int) -> str:
+    src = "f = 0"
+    for j in range(1, k):
+        src = f"f = {j % 9} OR (i IN (1, {j}) AND ({src}))"
+    return src
+
+
+@pytest.mark.parametrize("seed", range(16))
+def test_kernel_model_equals_jax_jit(seed):
+    """The numpy model of the kernel's scheme gives the JAX package's
+    (pass, fallback) masks at test_program_equals_jax_jit's seeds, on
+    its predicates, on stack forms, and on a plan deep enough for the
+    widest stack."""
+    rng = random.Random(seed)
+    n = [1, 33, 257, 600][seed % 4]
+    rb, pb = _mask_batches(seed, n)
+    srcs = [_gen_eligible_pred(rng, rng.randint(1, 3)) for _ in range(10)]
+    srcs += [_gen_computed_pred(rng, 2) for _ in range(3)]
+    srcs += [_EVERY_OPCODE[seed % len(_EVERY_OPCODE)], _deep_pred(6)]
+    words = set()
+    for src in srcs:
+        rp, pp = _plans(src, rb, pb)
+        program = sk.lower_program(pp)
+        words.add(_stack_words(program.depth))
+        got = _kernel_model(program, sk.bind_columns(pp, pb), n)
+        _assert_same(got, _ref_masks(rp, rb, n), src)
+    assert 1 in words and sk.MAX_STACK * _R // 32 in words, words
+
+
+@pytest.mark.parametrize("dtype", ["int32", "uint32", "bool", "float32"])
+def test_kernel_model_dtypes_equal_jax_jit(dtype):
+    """The model's dtype paths (the unsigned 2^24 test, uint32 past 2^31,
+    bool bytes) against the JAX package."""
+    n = 97
+    rng = np.random.default_rng(7)
+    vals = _dtype_values(dtype, n, rng)
+    null = rng.random(n) < 0.2
+    kind = "bool" if dtype == "bool" else "num"
+
+    def batch(mod):
+        return mod.ColumnBatch(["x"], {"x": mod.Column(
+            "x", kind, raw=vals, null=null, intish=dtype != "float32")},
+            n, 4 * n)
+
+    rb, pb = batch(ref_col), batch(pcol)
+    for src in _DTYPE_PREDICATES:
+        rp, pp = _plans(src, rb, pb)
+        got = _kernel_model(sk.lower_program(pp), sk.bind_columns(pp, pb), n)
+        _assert_same(got, _ref_masks(rp, rb, n), (dtype, src))
 
 
 def _reference_lane(rp, rb, n):
@@ -313,7 +712,7 @@ def test_eligibility_equals_reference(src, jit_ok, binds):
     assert (sk.lower_program(pp) is not None) == jit_ok
     if jit_ok:
         assert (ref_sk._bind_jit(rp, rb) is not None) == binds
-        assert (sk.bind_plan(pp, pb) is not None) == binds
+        assert (sk.bind_columns(pp, pb) is not None) == binds
 
 
 def test_dispatch_rides_background_lane(monkeypatch):
@@ -381,7 +780,10 @@ def test_chip_queries_reach_the_program(query, monkeypatch):
     batch = next(iter(pcol.parquet_column_batches(data)))
     plan = pcomp.Plan(pcomp.lower(psql.parse(query).where, batch))
     assert sk.lower_program(plan) is not None
-    assert sk.bind_plan(plan, batch) is not None
+    bound = sk.bind_columns(plan, batch)
+    assert bound is not None
+    # REQUIRED columns: the kernel reads their raw values and no mask.
+    assert all(null is None and miss is None for _, _, null, miss in bound)
     xml = _req_xml(query, "<Parquet/>")
     monkeypatch.setenv("MINIO_SELECT_ENGINE", "")
     body = psel.run_select(psel.parse_request(xml), data, device="cpu")
@@ -720,17 +1122,22 @@ def cuda_device():
 def test_kernel_equals_plain(cuda_device, n):
     rng = random.Random(n)
     _, pb = _mask_batches(n, n)
-    for _ in range(12):
-        src = _gen_eligible_pred(rng, 3)
+    srcs = [_gen_eligible_pred(rng, 3) for _ in range(12)]
+    srcs += [_gen_computed_pred(rng, 2) for _ in range(4)] + [_deep_pred(6)]
+    for src in srcs:
         q = psql.parse(f"SELECT * FROM S3Object WHERE {src}")
         plan = pcomp.Plan(pcomp.lower(q.where, pb))
         program = sk.lower_program(plan)
-        cols, _ = sk.bind_plan(plan, pb)
-        dev_cols = sk.place_columns(cols, n, cuda_device)
+        cols = sk.place_columns(sk.bind_columns(plan, pb), cuda_device)
+        out = torch.empty((2, n), dtype=torch.bool, device=cuda_device)
+        flag = torch.empty(1, dtype=torch.int32, device=cuda_device)
         before = sk.select_scan_cuda.launches
-        val, valid = sk.run_program(program, dev_cols, n, cuda_device)
+        sk.select_scan_cuda(program, cols, n, out[0], out[1], flag)
         assert sk.select_scan_cuda.launches == before + 1
-        pval, pvalid = sk.eval_program_plain(program, dev_cols, n,
-                                               cuda_device)
-        assert torch.equal(val, pval), src
-        assert torch.equal(valid, pvalid), src
+        ok, fb = sk.eval_program_plain(program, cols, n, cuda_device)
+        assert torch.equal(out[0], ok), src
+        assert torch.equal(out[1], fb), src
+        assert bool(flag.item()) == bool(fb.any().item()), src
+        got = sk.run_program(program, cols, n, cuda_device)
+        assert np.array_equal(got[0], ok.cpu().numpy()), src
+        assert np.array_equal(got[1], fb.cpu().numpy()), src
