@@ -13,7 +13,15 @@ through the port's entry points at deployment size:
   set with 10 MiB blocks;
 - S3 Select: ``run_select`` (SelectObjectContent) over a 256 MiB Parquet
   object, its response bodies byte-identical to the CPU lane's, and at
-  65,536 rows to the row oracle's Records.
+  65,536 rows to the row oracle's Records;
+- the dispatch plane (phases 11-16): the native C++ lane against the
+  numpy oracle and K2, the autotuner's probe ladder on the card, the
+  encode coalescer merging 16 concurrent 10 MiB PUTs into one K1 launch,
+  the 259 MiB object again through ``Erasure(backend="auto")``, the
+  REGEN class (12+4) on the same object through K1 at its (114 -> 240)
+  and (114 -> 114) shapes, and ``full_step`` through the port's
+  placement; kernprof must end with no dispatch failure and every lane
+  up.
 
 Every phase asserts; any failure exits non-zero. Prints the card, the
 kernels' times beside their bounds, and as its last line
@@ -717,6 +725,474 @@ def select_times(np, torch, dev, batch, plan, ptxas_log: str) -> dict:
             "shape": shape, "ptxas": report}
 
 
+def data_plane(np, torch, codec, bdev, payload, want_sha: str,
+               traced: bool = False) -> dict:
+    """6. / 14. PUT -> degraded GET -> heal of ``payload`` through
+    ``codec`` with the engine's own recipe, bitrot framing on ``bdev``:
+    data shards 0 and 5 lost and one byte rotted in frame 3 of shard 7.
+    The GET must be sha-exact and the heal byte-identical. Returns the
+    walls (ms), the tail block, and the device µs by event of a
+    torch.profiler session around it when ``traced``."""
+    from minio_tpu_torch.erasure import bitrot
+
+    k, m, bs = codec.data_blocks, codec.parity_blocks, codec.block_size
+    S = codec.shard_size()
+    size = payload.size
+    torch.cuda.synchronize()
+    prof = None
+    if traced:
+        from torch.profiler import ProfilerActivity, profile
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.__enter__()
+    t0 = time.perf_counter()
+    nfull = size // bs
+    full = np.zeros((nfull, k * S), dtype=np.uint8)
+    full[:, :bs] = payload[:nfull * bs].reshape(nfull, bs)
+    full_sm = codec.encode_blocks_batch_shardmajor(full.reshape(nfull, k, S))
+    tail = codec.encode_data(payload[nfull * bs:])
+    frames = bitrot.encode_stream_arrays(list(full_sm), device=bdev)
+    tail_frames = bitrot.encode_streams(
+        [tail[j].tobytes() for j in range(k + m)], S, device=bdev)
+    files = [np.concatenate([f, np.frombuffer(t, np.uint8)])
+             for f, t in zip(frames, tail_frames)]
+    t_put = time.perf_counter() - t0
+    check(len(files[0]) == bitrot.bitrot_shard_file_size(
+        codec.shard_file_size(size), S, bitrot.DEFAULT_ALGORITHM),
+        "shard file size")
+
+    # Lose data shards 0 and 5; rot one byte in frame 3 of shard 7.
+    originals = {j: (full_sm[j].copy(), tail[j].copy()) for j in (0, 5, 7)}
+    files[0] = files[5] = None
+    files[7] = files[7].copy()
+    files[7][3 * (32 + S) + 32 + 1000] ^= 0x5A
+    t0 = time.perf_counter()
+    hsz = 32
+    blocks, keys, datas, wants = [], [], [], []
+    for b in range(nfull + 1):
+        chunk = S if b < nfull else tail.shape[1]
+        row = [None] * (k + m)
+        for j, f in enumerate(files):
+            if f is None:
+                continue
+            base = b * (hsz + S)
+            row[j] = f[base + hsz:base + hsz + chunk]
+            datas.append(row[j])
+            wants.append(f[base:base + hsz].tobytes())
+            keys.append((b, j))
+        blocks.append(row)
+    oks = bitrot.verify_frames(datas, wants, device=bdev)
+    bad = [key for key, ok in zip(keys, oks) if not ok]
+    check(bad == [(3, 7)], f"verify_frames flagged {bad}, want [(3, 7)]")
+    for row in blocks:          # a rotten frame distrusts its whole shard
+        row[7] = None
+    rebuilt = codec.decode_data_blocks_batch(blocks)
+    got = hashlib.sha256()
+    for b, row in enumerate(rebuilt):
+        blk = b"".join(row[j].tobytes() for j in range(k))
+        got.update(blk[:bs] if b < nfull else blk[:size - nfull * bs])
+    t_get = time.perf_counter() - t0
+    check(got.hexdigest() == want_sha, "degraded GET sha256 != input's")
+    t0 = time.perf_counter()
+    healed = codec.decode_all_blocks_batch(blocks)
+    t_heal = time.perf_counter() - t0
+    for j, (orig_full, orig_tail) in originals.items():
+        for b in range(nfull):
+            check(np.array_equal(healed[b][j], orig_full[b]),
+                  f"heal shard {j} block {b}")
+        check(np.array_equal(healed[nfull][j], orig_tail),
+              f"heal shard {j} tail")
+    torch.cuda.synchronize()
+    dev_us = {}
+    if prof is not None:
+        prof.__exit__(None, None, None)
+        dev_us = device_us(prof)
+    return {"put_ms": t_put * 1e3, "get_ms": t_get * 1e3,
+            "heal_ms": t_heal * 1e3, "tail": tail, "nfull": nfull,
+            "dev_us": dev_us}
+
+
+# -- the dispatch plane and the REGEN class (phases 11-16) --------------------
+
+
+def zero_launches() -> None:
+    """Set every kernel's launch count to 0 (just before a path runs)."""
+    from minio_tpu_torch.ops import hh256_gpu, rs_gpu
+    from minio_tpu_torch.ops import select_kernels as sk
+    rs_gpu.gf_apply_cuda.launches = 0
+    hh256_gpu.hash_chunks_cuda.launches = 0
+    sk.select_scan_cuda.launches = 0
+
+
+def read_launches() -> dict:
+    from minio_tpu_torch.ops import hh256_gpu, rs_gpu
+    from minio_tpu_torch.ops import select_kernels as sk
+    return {"gf_apply": rs_gpu.gf_apply_cuda.launches,
+            "hh256": hh256_gpu.hash_chunks_cuda.launches,
+            "select_scan": sk.select_scan_cuda.launches}
+
+
+def gibs(nbytes: int, seconds: float) -> float:
+    return nbytes / max(seconds, 1e-12) / (1 << 30)
+
+
+def native_lane(np, torch, dev, payload) -> None:
+    """11. The native lane: g++ build + known-answer probe, then the C++
+    GF apply on one 12+4 10 MiB block against the numpy table-gather,
+    and the C++ HighwayHash of its 16 shards against K2's digests."""
+    from minio_tpu_torch import native
+    from minio_tpu_torch.ops import hh256_gpu
+    from minio_tpu_torch.ops.gf256 import gf_mat_vec_apply
+    from minio_tpu_torch.ops.hh256 import MAGIC_KEY
+    from minio_tpu_torch.ops.rs_matrix import parity_matrix
+
+    t0 = time.perf_counter()
+    check(native.probe(), "native.probe() failed its known-answer check")
+    build_s = time.perf_counter() - t0
+    k, m = 12, 4
+    S = -(-10 * MIB // k)
+    block = np.zeros((k, S), dtype=np.uint8)
+    block.reshape(-1)[:10 * MIB] = payload[:10 * MIB]
+    pm = parity_matrix(k, m)
+    native.rs_apply_native(pm, block)             # warm
+    t0 = time.perf_counter()
+    parity = native.rs_apply_native(pm, block)
+    rs_s = time.perf_counter() - t0
+    check(np.array_equal(parity, gf_mat_vec_apply(pm, block)),
+          "native rs_apply != gf_mat_vec_apply on a 12+4 10 MiB block")
+    shards = np.ascontiguousarray(np.concatenate([block, parity]))
+    t0 = time.perf_counter()
+    digs = native.hh256_rows_native(shards, MAGIC_KEY)
+    hh_s = time.perf_counter() - t0
+    k2 = hh256_gpu.hash_chunks(torch.from_numpy(shards).to(dev),
+                               MAGIC_KEY).cpu().numpy()
+    check(np.array_equal(digs, k2), "native hh256 != K2 on the 16 shards")
+    log(f"[native] g++ build + probe {build_s:.2f} s; rs_apply (12 -> 4) "
+        f"over a 10 MiB block {gibs(block.nbytes, rs_s)} GiB/s "
+        f"== gf_mat_vec_apply; hh256 over its 16 shards of {S} B "
+        f"{gibs(shards.nbytes, hh_s)} GiB/s == K2")
+
+
+def ladder_phase() -> dict:
+    """12. The autotuner's probe ladder in the foreground on the card:
+    every probed lane passes its known-answer check at every rung, and
+    K1 (RS, REGEN rungs) and X2 (Select rungs) launch during it."""
+    from minio_tpu_torch.obs.kernprof import DEVICE, HOST, NATIVE
+    from minio_tpu_torch.ops.autotune import AUTOTUNE
+
+    zero_launches()
+    t0 = time.perf_counter()
+    res = AUTOTUNE.probe_ladder()
+    ladder_s = time.perf_counter() - t0
+    lz = read_launches()
+    snap = AUTOTUNE.snapshot()
+    tables = {"rs": res, "select": snap["lastSelectProbe"],
+              "regen": snap["lastRegenProbe"]}
+    for what, table in tables.items():
+        log(f"[ladder] {what} probes, GiB/s per rung: {json.dumps(table)}")
+        for lane, per in table.items():
+            check(per and all(v for v in per.values()),
+                  f"ladder: {what} probe of {lane} failed: {per}")
+    check(set(res) == {DEVICE, NATIVE, HOST},
+          f"ladder probed {set(res)}, want device/native/host")
+    check(DEVICE in tables["select"] and DEVICE in tables["regen"],
+          "ladder: the select / regen probes skipped the card")
+    check(lz["gf_apply"] > 0 and lz["select_scan"] > 0,
+          f"ladder launched K1/X2 {lz}")
+    plan = AUTOTUNE.plan_compact()
+    log(f"[ladder] {ladder_s:.2f} s, launches {lz}; plan {json.dumps(plan)}")
+    return {"seconds": ladder_s, "launches": lz, "plan": plan}
+
+
+def coalescer_phase(np, torch, dev) -> dict:
+    """13. Sixteen threads each prepare one 12+4 10 MiB block, meet at a
+    barrier and submit to an EncodeCoalescer whose policy sends them to
+    the card: one window, ONE K1 launch, every result == the native host
+    encode, no request declined. The window is a test window, long
+    enough for sixteen submissions; its queue wait measures that window,
+    not a deployment's. The K1 time is the window's own launch, bracketed
+    by CUDA events in the dispatcher thread."""
+    import inspect
+    import threading
+
+    from minio_tpu_torch.obs.kernprof import KERNPROF
+    from minio_tpu_torch.ops import batching, rs_gpu
+
+    k, m, n, window = 12, 4, 16, 0.1
+    default_window = inspect.signature(
+        batching.EncodeCoalescer).parameters["window_s"].default
+    S = -(-10 * MIB // k)
+    co = batching.EncodeCoalescer(lambda nbytes: True, window_s=window)
+    waits = []
+    record = KERNPROF.record_queue_wait
+    KERNPROF.record_queue_wait = lambda kern, ms: (waits.append(ms),
+                                                   record(kern, ms))
+    outs = [None] * n
+    barrier = threading.Barrier(n)
+    encode_blocks, marks = rs_gpu.encode_blocks, []
+
+    def timed_encode(bm, x):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        out = encode_blocks(bm, x)
+        end.record()
+        marks.append((start, end))
+        return out
+
+    def put(i):
+        data = np.random.default_rng(100 + i).integers(
+            0, 256, (1, k, S), dtype=np.uint8)
+        barrier.wait()
+        outs[i] = (data, co.encode(data, k, m))
+
+    batching.STATS.reset()
+    zero_launches()
+    threads = [threading.Thread(target=put, args=(i,)) for i in range(n)]
+    rs_gpu.encode_blocks = timed_encode
+    t0 = time.perf_counter()
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+    finally:
+        co.stop()
+        del KERNPROF.record_queue_wait
+        rs_gpu.encode_blocks = encode_blocks
+    wall_ms_ = (time.perf_counter() - t0) * 1e3
+    lz = read_launches()
+    stats = batching.STATS.snapshot()
+    check(not any(th.is_alive() for th in threads), "a coalescer PUT hung")
+    check(stats["coalesced_requests"] == n,
+          f"coalesced_requests {stats['coalesced_requests']}, want {n}")
+    check(lz["gf_apply"] == 1, f"the window launched K1 {lz['gf_apply']} "
+          f"times, want 1")
+    # One dispatch in all: a declined request would host-encode on its
+    # own and count one more.
+    check(stats["cpu_dispatches"] + stats["gpu_dispatches"] == 1,
+          f"the coalescer declined to the host: {stats}")
+    for data, enc in outs:
+        check(np.array_equal(enc, batching.host_encode(data, k, m)),
+              "coalesced encode != native host encode")
+    check(len(marks) == 1, f"the window called encode_blocks {len(marks)} "
+          f"times, want 1")
+    torch.cuda.synchronize(dev)
+    k1_ms = marks[0][0].elapsed_time(marks[0][1])
+    waits.sort()
+    log(f"[coalescer] test window_s {window} (the default is "
+        f"{default_window}): {n} requests of "
+        f"(1, {k}, {S}) -> 1 dispatch (coalesced_requests "
+        f"{stats['coalesced_requests']}, K1 launches {lz['gf_apply']}), "
+        f"results == native host encode; queue wait at this window p50 "
+        f"{statistics.median(waits)} ms, max {waits[-1]} ms, submission "
+        f"spread {waits[-1] - waits[0]} ms; the window's own K1 launch "
+        f"{k1_ms} ms (CUDA events) at ({n}, {k}, {S}); wall {wall_ms_} ms")
+    return {"launches": lz, "k1_ms": k1_ms,
+            "wait_p50_ms": statistics.median(waits),
+            "wait_max_ms": waits[-1],
+            "spread_ms": waits[-1] - waits[0]}
+
+
+def auto_phase(np, torch, payload, want_sha, pinned: dict) -> dict:
+    """14. Phase 6 again with Erasure(12, 4, backend="auto") after the
+    ladder, bitrot on device="auto": sha-exact; K1 launches exactly when
+    the plan sends an RS bucket of this object to the card."""
+    from minio_tpu_torch.erasure.codec import Erasure
+    from minio_tpu_torch.obs.kernprof import DEVICE, KERNPROF
+    from minio_tpu_torch.ops import batching
+    from minio_tpu_torch.ops.autotune import AUTOTUNE
+
+    mix0 = KERNPROF.mix_snapshot()
+    zero_launches()
+    codec = Erasure(12, 4, block_size=10 * MIB, backend="auto")
+    got = data_plane(np, torch, codec, "auto", payload, want_sha)
+    if batching._global_coalescer is not None:
+        batching._global_coalescer.stop()
+    lz = read_launches()
+    mix1 = KERNPROF.mix_snapshot()
+    mix = {lane: {key: mix1[lane][key] - mix0[lane][key]
+                  for key in ("dispatches", "bytes")} for lane in mix1}
+    plan = AUTOTUNE.plan_compact()
+    to_card = sorted(f"{kern}[{b}]" for kern in ("rs_encode", "rs_decode")
+                     for b in ("4-16M", "16M+")
+                     if plan.get(kern, {}).get(b) == DEVICE)
+    check(lz["hh256"] > 0, f"auto: K2 never launched ({lz})")
+    check((lz["gf_apply"] > 0) == bool(to_card),
+          f"auto: K1 launches {lz['gf_apply']} but the plan sends "
+          f"{to_card or 'no RS bucket'} to the card")
+    log(f"[auto] Erasure(12, 4, backend='auto') + bitrot device='auto': "
+        f"PUT {got['put_ms']} ms, degraded GET {got['get_ms']} ms, heal "
+        f"{got['heal_ms']} ms (pinned 'gpu' in this call: "
+        f"{pinned['put_ms']} / {pinned['get_ms']} / {pinned['heal_ms']} "
+        f"ms); GET sha256 == input; launches {lz}; RS buckets on the "
+        f"card {to_card}; lane mix {json.dumps(mix)}")
+    return {"launches": lz, "mix": mix, "walls": [got["put_ms"],
+                                                  got["get_ms"],
+                                                  got["heal_ms"]]}
+
+
+def regen_phase(np, torch, dev, payload, want_sha) -> dict:
+    """15. The REGEN class, 12+4, on the same 259 MiB object with
+    RegenErasure(backend="gpu"): the 25 full blocks encoded in one batch
+    and the tail alone; 4 nodes dropped and every block decoded
+    sha-exact; one lost node re-encoded and rebuilt by transfer from its
+    d helpers, byte-exact; a column subsample of the encode against
+    gf_mat_vec_apply; K1 against its plain version at the REGEN shapes
+    and timed at the full encode and decode shapes."""
+    from minio_tpu_torch.erasure.regen import RegenErasure
+    from minio_tpu_torch.ops import rs_gpu, rs_regen
+    from minio_tpu_torch.ops.gf256 import gf_mat_vec_apply
+
+    k, m, bs = 12, 4, 10 * MIB
+    codec = RegenErasure(k, m, block_size=bs, backend="gpu")
+    g = codec.g
+    n, d, B = g.n, g.d, g.B
+    nfull = payload.size // bs
+    full = payload[:nfull * bs].reshape(nfull, bs)
+    tail = payload[nfull * bs:]
+    nst = codec.stripe_count(bs)
+    zero_launches()
+    t0 = time.perf_counter()
+    sm = codec.encode_blocks_batch_bytes(full)
+    tail_chunks = codec.encode_data(tail)
+    enc_ms = (time.perf_counter() - t0) * 1e3
+    lost = (0, 5, 9, 14)
+    rows = [[None if j in lost else sm[j, b] for j in range(n)]
+            for b in range(nfull)]
+    rows.append([None if j in lost else tail_chunks[j] for j in range(n)])
+    lens = [bs] * nfull + [tail.size]
+    t0 = time.perf_counter()
+    blocks = codec.decode_blocks_batch(rows, lens)
+    dec_ms = (time.perf_counter() - t0) * 1e3
+    check(hashlib.sha256(b"".join(blocks)).hexdigest() == want_sha,
+          "REGEN: decoded object sha256 != input's")
+    f = lost[1]
+    t0 = time.perf_counter()
+    re = codec.reencode_missing_batch(rows, lens, [f])
+    re_ms = (time.perf_counter() - t0) * 1e3
+    lz = read_launches()
+    check(all(re[b][f] == sm[f, b].tobytes() for b in range(nfull))
+          and re[nfull][f] == tail_chunks[f].tobytes(),
+          f"REGEN: re-encoded node {f} != its encoded chunks")
+    # Repair by transfer: node f's chunk from one stored row per helper.
+    plan = rs_regen.repair_rows(k, m, f)
+    nst_t = codec.stripe_count(tail.size)
+    for b in range(nfull):
+        rebuilt = np.empty(d * nst, dtype=np.uint8)
+        for helper, hr, dr in plan:
+            rebuilt[dr * nst:(dr + 1) * nst] = \
+                sm[helper, b, hr * nst:(hr + 1) * nst]
+        check(np.array_equal(rebuilt, sm[f, b]),
+              f"REGEN: repair_rows rebuild of node {f} block {b}")
+    rebuilt = np.empty(d * nst_t, dtype=np.uint8)
+    for helper, hr, dr in plan:
+        rebuilt[dr * nst_t:(dr + 1) * nst_t] = \
+            tail_chunks[helper][hr * nst_t:(hr + 1) * nst_t]
+    check(np.array_equal(rebuilt, tail_chunks[f]),
+          f"REGEN: repair_rows rebuild of node {f}, tail")
+    # The first 65,536 stripes of block 0 against the host oracle.
+    sub = min(65536, nst)
+    W0 = rs_regen.pack_block(k, m, full[0])[:, :sub]
+    want = gf_mat_vec_apply(rs_regen.encode_matrix_regen(k, m), W0)
+    got = sm[:, 0].reshape(n, d, nst)[:, :, :sub].reshape(n * d, sub)
+    check(np.array_equal(got, want),
+          "REGEN: encode != gf_mat_vec_apply on block 0's first stripes")
+    log(f"[regen] 12+4 (n={n}, d={d}, B={B}), {payload.size} B: encode "
+        f"{nfull} blocks + tail {enc_ms} ms, decode with nodes {lost} lost "
+        f"{dec_ms} ms (sha256 == input), re-encode of node {f} {re_ms} ms "
+        f"== its chunks, repair by transfer from {d} helpers byte-exact, "
+        f"first {sub} stripes == gf_mat_vec_apply; K1 launches {lz}")
+    check(lz["gf_apply"] > 0, "REGEN path never launched K1")
+
+    # K1 against its plain version at the REGEN matrices.
+    bm_e = rs_regen.placed_encode_bitplane(k, m, dev)
+    nodes = tuple(j for j in range(n) if j not in lost)[:k]
+    bm_d = rs_regen.placed_decode_bitplane(k, m, nodes, dev)
+    rng = np.random.default_rng(15)
+    wide = torch.from_numpy(rng.integers(0, 256, (1, B, 65536 + 32),
+                                         dtype=np.uint8)).to(dev)
+    worst = 0
+    for bm in (bm_e, bm_d):
+        for S in (4096, 4099, 65536 + 3):
+            for off in (0, 1):
+                x = wide[:, :, off:off + S]
+                e = max_err(torch, rs_gpu.gf_apply(bm, x),
+                            rs_gpu.gf_apply_plain(bm.dense, x))
+                check(e == 0, f"K1 (k={bm.k}, r={bm.r}) S={S} off={off}: "
+                      f"kernel != plain")
+                worst = max(worst, e)
+    # Times at the full encode and decode shapes.
+    S = nfull * nst
+    cols = torch.from_numpy(rs_regen.pack_blocks_batch(k, m, full)).to(
+        dev)[None]
+    out_e = torch.empty((1, bm_e.r, S), dtype=torch.uint8, device=dev)
+    enc_k = events_ms(torch, lambda: rs_gpu.gf_apply_cuda(
+        bm_e, cols, out_e, bm_e.r * S, S, 0, False), runs=10, warmup=2)
+    e = max_err(torch, out_e[:, :, :sub],
+                rs_gpu.gf_apply_plain(bm_e.dense, cols[:, :, :sub]))
+    check(e == 0, "K1 at the REGEN encode shape: kernel != plain")
+    out_d = torch.empty((1, bm_d.r, S), dtype=torch.uint8, device=dev)
+    dec_k = events_ms(torch, lambda: rs_gpu.gf_apply_cuda(
+        bm_d, cols, out_d, bm_d.r * S, S, 0, False), runs=10, warmup=2)
+    PS = 262144
+    plain_ms = wall_ms(torch, lambda: rs_gpu.gf_apply_plain(
+        bm_e.dense, cols[:, :, :PS]), runs=3)
+    rec = {"launches": lz["gf_apply"], "max_abs_err": max(worst, e)}
+    for name, kk, r, ms in (("encode", B, bm_e.r, enc_k),
+                            ("decode", B, bm_d.r, dec_k)):
+        nbytes = (kk + r) * S
+        ops = 2 * (8 * r) * (8 * kk) * S
+        bytes_ms, ops_ms = nbytes / HBM_BPS * 1e3, ops / INT8_OPS * 1e3
+        rec[name] = {"shape": f"(1, {kk}, {S}) -> (1, {r}, {S})", "ms": ms,
+                     "bound_bytes_ms": bytes_ms, "bound_ops_ms": ops_ms,
+                     "bound_ms": max(bytes_ms, ops_ms),
+                     "bound_by": "bytes" if bytes_ms >= ops_ms
+                     else "operations"}
+        log(f"[times] gf_apply REGEN {name} (1, {kk}, {S}) -> (1, {r}, "
+            f"{S}): {ms} ms, byte bound {bytes_ms} ms, op bound {ops_ms} "
+            f"ms ({rec[name]['bound_by']})")
+    rec["plain_ms"] = plain_ms
+    rec["plain_shape"] = f"encode (1, {B}, {PS}) -> (1, {bm_e.r}, {PS})"
+    log(f"[times] gf_apply REGEN plain version {plain_ms} ms at "
+        f"{rec['plain_shape']}")
+    return rec
+
+
+def placement_phase(torch, devices, enc, dec, fdata, used) -> dict:
+    """16. The device census, and full_step through the port's placement
+    (models/ec_pipeline.full_step_sharded over every card of the census),
+    against the one-device full_step on the same inputs."""
+    from minio_tpu_torch.models import ec_pipeline
+
+    count = len(devices)
+    zero_launches()
+    t0 = time.perf_counter()
+    out = ec_pipeline.full_step_sharded(devices, enc, dec, fdata, used)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    lz = read_launches()
+    one = ec_pipeline.full_step(enc, dec, fdata, used)
+    check(int(out["mismatch"]) == 0, "full_step_sharded mismatch")
+    check(torch.equal(out["shards"].to(one["shards"].device),
+                      one["shards"]), "full_step_sharded shards != full_step")
+    check(lz["gf_apply"] > 0, "full_step_sharded never launched K1")
+    log(f"[placement] census {count} CUDA device(s); full_step_sharded "
+        f"over {count}: mismatch 0, shards == full_step's, {step_ms} ms wall "
+        f"incl. placement copies; launches {lz}")
+    return {"devices": count, "launches": lz}
+
+
+def final_health() -> None:
+    """Kernprof recorded no dispatch failure and every lane ends UP."""
+    from minio_tpu_torch.obs.kernprof import KERNPROF
+    snap = KERNPROF.snapshot()["backends"]
+    fails = {b: v["failures"] for b, v in snap.items() if v["failures"]}
+    check(not fails, f"kernprof recorded dispatch failures {fails}")
+    down = {b: v["state"] for b, v in snap.items() if v["state"] != "up"}
+    check(not down, f"kernprof lanes not UP at the end: {down}")
+    log("[health] kernprof: no dispatch failure, every lane up; lane mix "
+        + json.dumps(KERNPROF.mix_snapshot()))
+
+
 def setup():
     """(numpy, torch) once a card and the port beside this file are
     there; exits non-zero otherwise."""
@@ -887,77 +1363,10 @@ def main() -> None:
     payload = np.random.default_rng(1).integers(0, 256, size,
                                                 dtype=np.uint8)
     want_sha = hashlib.sha256(payload).hexdigest()
-    torch.cuda.synchronize()
-    from torch.profiler import ProfilerActivity, profile
-    prof = profile(activities=[ProfilerActivity.CUDA])
-    prof.__enter__()
-    t0 = time.perf_counter()
-    nfull = size // bs
-    full = np.zeros((nfull, k * S), dtype=np.uint8)
-    full[:, :bs] = payload[:nfull * bs].reshape(nfull, bs)
-    full_sm = codec.encode_blocks_batch_shardmajor(full.reshape(nfull, k, S))
-    tail = codec.encode_data(payload[nfull * bs:])
-    frames = bitrot.encode_stream_arrays(list(full_sm), device=dev)
-    tail_frames = bitrot.encode_streams(
-        [tail[j].tobytes() for j in range(k + m)], S, device=dev)
-    files = [np.concatenate([f, np.frombuffer(t, np.uint8)])
-             for f, t in zip(frames, tail_frames)]
-    t_put = time.perf_counter() - t0
-    check(len(files[0]) == bitrot.bitrot_shard_file_size(
-        codec.shard_file_size(size), S, bitrot.DEFAULT_ALGORITHM),
-        "shard file size")
-
-    # Lose data shards 0 and 5; rot one byte in frame 3 of shard 7.
-    originals = {j: (full_sm[j].copy(), tail[j].copy()) for j in (0, 5, 7)}
-    files[0] = files[5] = None
-    files[7] = files[7].copy()
-    files[7][3 * (32 + S) + 32 + 1000] ^= 0x5A
-    t0 = time.perf_counter()
-    hsz = 32
-    blocks, keys, datas, wants = [], [], [], []
-    n_blocks = nfull + 1
-    for b in range(n_blocks):
-        chunk = S if b < nfull else tail.shape[1]
-        row = [None] * (k + m)
-        for j, f in enumerate(files):
-            if f is None:
-                continue
-            base = b * (hsz + S)
-            row[j] = f[base + hsz:base + hsz + chunk]
-            datas.append(row[j])
-            wants.append(f[base:base + hsz].tobytes())
-            keys.append((b, j))
-        blocks.append(row)
-    oks = bitrot.verify_frames(datas, wants, device=dev)
-    bad = [key for key, ok in zip(keys, oks) if not ok]
-    check(bad == [(3, 7)], f"verify_frames flagged {bad}, want [(3, 7)]")
-    for row in blocks:          # a rotten frame distrusts its whole shard
-        row[7] = None
-    rebuilt = codec.decode_data_blocks_batch(blocks)
-    got = hashlib.sha256()
-    for b, row in enumerate(rebuilt):
-        blk = b"".join(row[j].tobytes() for j in range(k))
-        got.update(blk[:bs] if b < nfull else blk[:size - nfull * bs])
-    t_get = time.perf_counter() - t0
-    check(got.hexdigest() == want_sha, "degraded GET sha256 != input's")
-    t0 = time.perf_counter()
-    healed = codec.decode_all_blocks_batch(blocks)
-    t_heal = time.perf_counter() - t0
-    for j, (orig_full, orig_tail) in originals.items():
-        for b in range(nfull):
-            check(np.array_equal(healed[b][j], orig_full[b]),
-                  f"heal shard {j} block {b}")
-        check(np.array_equal(healed[nfull][j], orig_tail),
-              f"heal shard {j} tail")
-    torch.cuda.synchronize()
-    prof.__exit__(None, None, None)
+    p6 = data_plane(np, torch, codec, dev, payload, want_sha, traced=True)
     main_s = time.perf_counter() - main_t0
-    dev_us = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0)
-        dev_us[ev.key] = us
+    tail, nfull = p6["tail"], p6["nfull"]
+    dev_us = p6["dev_us"]
     gf_us = sum(v for n, v in dev_us.items() if "gf_apply_kernel" in n)
     hh_us = sum(v for n, v in dev_us.items() if "hh256_kernel" in n)
     cp_us = sum(v for n, v in dev_us.items() if "memcpy" in n.lower())
@@ -965,12 +1374,12 @@ def main() -> None:
     launches = {"gf_apply": rs_gpu.gf_apply_cuda.launches,
                 "hh256": hh256_gpu.hash_chunks_cuda.launches}
     log(f"[data plane] 12+4 10 MiB blocks, {size} B object: PUT "
-        f"{t_put * 1e3} ms, degraded GET (verify + rebuild 0,5,7 + "
-        f"sha) {t_get * 1e3} ms, heal {t_heal * 1e3} ms end to end "
+        f"{p6['put_ms']} ms, degraded GET (verify + rebuild 0,5,7 + "
+        f"sha) {p6['get_ms']} ms, heal {p6['heal_ms']} ms end to end "
         f"incl. host<->device copies; rotten frame (3, 7) flagged; GET "
         f"sha256 == input; heal byte-identical")
     if all_us:
-        e2e_ms = (t_put + t_get + t_heal) * 1e3
+        e2e_ms = p6["put_ms"] + p6["get_ms"] + p6["heal_ms"]
         log(f"[data plane] device time (torch.profiler): gf_apply kernel "
             f"{gf_us / 1e3} ms, hh256 kernel {hh_us / 1e3} ms, host<->device "
             f"copies {cp_us / 1e3} ms, all device work {all_us / 1e3} ms of "
@@ -987,7 +1396,6 @@ def main() -> None:
           f"a kernel of the path never launched: {launches}")
     check(hh_phase6 == 4, f"phase 6 launched hh256 {hh_phase6} times, "
           f"want 4")
-    del full, full_sm, frames, files, blocks, rebuilt, healed, datas
 
     # 7. Times at the main-path shapes.
     B, K, R, SS = 32, 8, 4, 1310720
@@ -1099,6 +1507,19 @@ def main() -> None:
     x2_launches, batch, plan = select_path(np, torch, dev)
     x2 = select_times(np, torch, dev, batch, plan, lib.ptxas_log)
 
+    # 11.-16. The dispatch plane and the REGEN class.
+    t_plane = time.perf_counter()
+    native_lane(np, torch, dev, payload)
+    ladder = ladder_phase()
+    coal = coalescer_phase(np, torch, dev)
+    auto = auto_phase(np, torch, payload, want_sha, p6)
+    regen = regen_phase(np, torch, dev, payload, want_sha)
+    place = placement_phase(torch, [torch.device("cuda", i) for i in range(
+        torch.cuda.device_count())], enc, dec, fdata, used)
+    final_health()
+    log(f"[dispatch plane] phases 11-16: "
+        f"{time.perf_counter() - t_plane:.1f} s")
+
     kernels = [
         {"name": "gf_apply", "route": "cuda",
          "source": "minio_tpu_torch/csrc/gf_apply.cu",
@@ -1109,7 +1530,14 @@ def main() -> None:
          "library_ms": None,
          "shape": "encode_blocks (32, 8, 1310720) -> (32, 12, 1310720)",
          "plain_shape": "the same",
-         "library_note": "no PyTorch call computes a GF(2^8) linear map"},
+         "library_note": "no PyTorch call computes a GF(2^8) linear map",
+         "regen": regen,
+         "launches_by_path": {
+             "ladder": ladder["launches"]["gf_apply"],
+             "coalescer": coal["launches"]["gf_apply"],
+             "auto": auto["launches"]["gf_apply"],
+             "regen": regen["launches"],
+             "placement": place["launches"]["gf_apply"]}},
         {"name": "hh256", "route": "cuda",
          "source": "minio_tpu_torch/csrc/hh256.cu",
          "replaces": "minio_tpu/ops/hh256_tpu.py:232",

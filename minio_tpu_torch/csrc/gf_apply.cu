@@ -22,11 +22,15 @@
 //
 // What bounds it on an H100: the bytes are B*(k + r)*S (reads once, writes
 // once) against 3.35 TB/s; the bit-plane product as int8 tensor-core work
-// (2*(8r)*(8k)*S*B operations against 1,979 TOP/s) is lower for every
-// (k, r) the data plane uses. So instruction issue must stay near the byte
-// rate. Counting bits (an AND + POPC per output bit of a column) cannot:
-// POPC issues at a quarter of the integer rate on sm_90, 2.7 G of them at
-// 8+4 over the main path's 41.9 M columns. Here a column costs
+// (2*(8r)*(8k)*S*B operations against 1,979 TOP/s) is lower for every RS
+// (k, r) the data plane uses, so instruction issue must stay near the byte
+// rate. The REGEN class's maps (12+4: k = 114, r = 240 and 114) are bound
+// by that product instead, and this scheme's instruction count runs above
+// it there.
+// Counting bits (an AND + POPC per output bit of a column) cannot keep
+// near the byte rate: POPC issues at a quarter of the integer rate on
+// sm_90, 2.7 G of them at 8+4 over the main path's 41.9 M columns. Here a
+// column costs
 // k*(8 + 4r)/2 full-rate integer instructions plus k*ceil(r/4)/2 LDS.128
 // (8+4: 96 + 4), all on packed words, and each thread takes 16
 // neighbouring columns with 16-byte loads and stores: with the issue rate

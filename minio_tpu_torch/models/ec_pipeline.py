@@ -9,6 +9,12 @@ jitted chain becomes eager launches of the GF kernel:
 forward step  = encode:      (B, k, S) data shards   -> (B, k+m, S)
 reconstruct   = decode:      (B, k, S) survivors     -> (B, r, S) rebuilt
 verify        = mismatch count between rebuilt and original data.
+
+``full_step_sharded`` is the reference's multi-chip step (rs_pallas.py
+``encode_blocks_sharded`` / ``gf_apply_sharded`` under the shardings of
+``dryrun_multichip``): the batch splits over a mesh of devices (B over
+'blocks', S over 'lanes', parallel/mesh.py), each device launches K1 on
+its own tile, and the mismatch counts are summed. No collectives.
 """
 
 from __future__ import annotations
@@ -119,3 +125,43 @@ def make_full_step_inputs(config: ECConfig, batch: int, shard_size: int,
     return (rs_gpu.placed_parity(k, m, dev), dec_all,
             _cuda.to_device(data, dev),
             torch.tensor(used, dtype=torch.int64, device=dev))
+
+
+def full_step_sharded(devices, big_enc, big_dec, data,
+                      survivor_idx) -> dict:
+    """full_step with the (B, k, S) batch split over a mesh of
+    ``devices`` (torch devices, or "cpu" repeated for virtual ones): B
+    over 'blocks' and S over 'lanes' where they divide, as the
+    reference's block sharding. Each tile's encode, survivor gather and
+    decode run on its device; the mismatch is the sum over tiles.
+
+    big_enc, big_dec: bit-plane matrices (BitMatrix, tensor or array);
+    data: (B, k, S) uint8 array or tensor; survivor_idx: (k,) indices.
+    Returns shards and rebuilt assembled on the first device."""
+    from ..parallel.mesh import batch_placement, make_mesh
+    devs = [_cuda.resolve_device(d) for d in devices]
+    mesh = make_mesh(devs)
+    host = data.cpu().numpy() if isinstance(data, torch.Tensor) \
+        else np.asarray(data, dtype=np.uint8)
+    idx = np.asarray(survivor_idx.cpu() if isinstance(
+        survivor_idx, torch.Tensor) else survivor_idx, dtype=np.int64)
+    B, k, S = host.shape
+    parts = []
+    for di, bs, ss in batch_placement(mesh, B, S)[0].tiles:
+        dev = devs[di]
+        out = full_step(rs_gpu.as_bitmatrix(big_enc, dev),
+                        rs_gpu.as_bitmatrix(big_dec, dev),
+                        _cuda.to_device(host[bs, :, ss], dev),
+                        torch.from_numpy(idx).to(dev))
+        parts.append((bs, ss, out))
+    home = devs[0]
+    shards = torch.empty((B, parts[0][2]["shards"].shape[1], S),
+                         dtype=torch.uint8, device=home)
+    rebuilt = torch.empty((B, parts[0][2]["rebuilt"].shape[1], S),
+                          dtype=torch.uint8, device=home)
+    mismatch = torch.zeros((), dtype=torch.int64, device=home)
+    for bs, ss, out in parts:
+        shards[bs, :, ss] = out["shards"].to(home)
+        rebuilt[bs, :, ss] = out["rebuilt"].to(home)
+        mismatch += out["mismatch"].to(home)
+    return {"shards": shards, "rebuilt": rebuilt, "mismatch": mismatch}

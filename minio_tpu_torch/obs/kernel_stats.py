@@ -11,9 +11,9 @@ blocks and coalesced request counts. Kernel identities:
 The port's own copy of ``minio_tpu/obs/kernel_stats.py``. The series
 and their labels are the reference's (the accelerator lane keeps the
 label value ``device="tpu"``), so a reader of one package's metrics
-reads the other's. The reference also feeds each record to its
-per-dispatch profiler (``obs/kernprof.py``); that layer is not ported
-yet, so ``record`` takes no ``backend`` lane.
+reads the other's. Every record also feeds the per-dispatch profiler
+(``obs/kernprof.py``) with the lane that ran, and through it the codec
+autotuner.
 """
 
 from __future__ import annotations
@@ -31,12 +31,20 @@ SELECT_SCAN = "select_scan"
 
 
 class KernelStats:
-    """Recording facade over the v2 registry's kernel counters."""
+    """Recording facade over the v2 registry's kernel counters.
+
+    ``backend`` refines the binary device flag into the real dispatch
+    lane (obs/kernprof.py BACKENDS: device / native / torch-cpu / host);
+    every record also feeds the kernprof per-dispatch profile layer --
+    latency histogram per (kernel, backend, batch bucket), per-backend
+    byte counters, and the backend health state machine's success
+    outcomes.  Callers that don't know their lane omit it and the coarse
+    device flag maps to device/host."""
 
     @staticmethod
     def record(kernel: str, device: bool, nbytes: int,
                wall_s: float = 0.0, blocks: int = 0,
-               requests: int = 1) -> None:
+               requests: int = 1, backend: str | None = None) -> None:
         lbl = {"kernel": kernel, "device": "tpu" if device else "host"}
         METRICS2.inc("minio_tpu_v2_kernel_invocations_total", lbl)
         METRICS2.inc("minio_tpu_v2_kernel_bytes_total", lbl, nbytes)
@@ -49,6 +57,11 @@ class KernelStats:
         if requests > 1:
             METRICS2.inc("minio_tpu_v2_kernel_coalesced_requests_total",
                          lbl, requests)
+        from .kernprof import DEVICE, HOST, KERNPROF
+        if backend is None:
+            backend = DEVICE if device else HOST
+        KERNPROF.record_dispatch(kernel, backend, nbytes, wall_s,
+                                 blocks)
 
     @staticmethod
     def record_coalesced(kernel: str, requests: int) -> None:

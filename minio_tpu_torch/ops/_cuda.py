@@ -57,6 +57,13 @@ _SIGNATURES = {
 }
 
 
+class BuildFailed(RuntimeError):
+    """A kernel library (the CUDA kernels here, the C++ host kernels in
+    minio_tpu_torch/native) failed to build. Raised at first use and
+    never taken as a lane's failure: a dispatch lane that cannot be built
+    is a broken installation, not a DOWN lane to fail over from."""
+
+
 def resolve_device(device) -> torch.device:
     """torch.device for ``device``; raises when it names CUDA and no
     card is present (entry points never fall back to the CPU)."""
@@ -117,8 +124,8 @@ def _nvcc() -> str:
     fallback = Path("/usr/local/cuda/bin/nvcc")
     if fallback.exists():
         return str(fallback)
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                       "build minio_tpu_torch/csrc")
+    raise BuildFailed("nvcc not found: the CUDA toolkit is needed to "
+                     "build minio_tpu_torch/csrc")
 
 
 def _source_hash() -> str:
@@ -144,14 +151,14 @@ def _compile_and_link(so: Path) -> str:
     try:
         for src, proc, (_, err) in zip(SOURCES, procs, outs):
             if proc.returncode != 0:
-                raise RuntimeError(
+                raise BuildFailed(
                     f"nvcc failed on {src} ({proc.returncode}):\n{err}")
         tmp = so.with_suffix(f".{tag}")
         link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
                                *(str(o) for o in objs)],
                               capture_output=True, text=True)
         if link.returncode != 0:
-            raise RuntimeError(
+            raise BuildFailed(
                 f"nvcc link failed ({link.returncode}):\n{link.stderr}")
         os.replace(tmp, so)
     finally:
@@ -176,8 +183,12 @@ def build() -> KernelLib:
             ptxas = _compile_and_link(so)
             seconds = time.perf_counter() - t0
             log.write_text(ptxas)
-        _lib = KernelLib(so, seconds,
-                         log.read_text() if log.exists() else "")
+        try:
+            _lib = KernelLib(so, seconds,
+                             log.read_text() if log.exists() else "")
+        except (OSError, AttributeError) as exc:
+            # A library that built but does not load is a broken build.
+            raise BuildFailed(f"{so} does not load: {exc!r}") from exc
         return _lib
 
 

@@ -29,11 +29,16 @@ masks: the reference's ``_bind_jit`` + ``_run_jit`` + ``val & valid &
   string columns bind to None, as in the reference's ``_bind_jit``, and
   the plan runs on the host numpy lane (``plan.eval_host``), which is the
   reference's own semantics for it.
-- **The lane is the caller's device**: ``device="cuda"`` launches the
-  kernel (a CUDA error raises; the reference's move to the host lane
-  after a failed dispatch is not carried over), ``device="cpu"`` runs
-  the plain version. The reference's autotuned lane choice
-  (``choose_lane``) and ``probe_lane`` are not ported yet.
+- **The lane**: a pinned ``device="cuda"`` launches the kernel (a CUDA
+  error raises), ``device="cpu"`` runs the plain version.
+  ``device="auto"`` rides the measured autotuner model (ops/autotune.py,
+  kernel ``select_scan``) like RS math does: ``choose_lane`` picks the
+  fastest healthy lane per batch-size bucket -- the kernel on the
+  dispatch device (``device``, or ``torch-cpu`` when that is the CPU) or
+  the numpy host lane (there is no C++ select kernel, so a NATIVE plan
+  resolves to HOST) -- and a failed kernel dispatch feeds kernprof and
+  re-runs the batch on the host lane. ``probe_lane`` is the ladder's
+  known-answer probe.
 - **QoS**: every dispatch enters the priority gate on the BACKGROUND
   lane, as in the reference.
 """
@@ -606,30 +611,128 @@ def run_program(program: Program, cols: list, n: int,
 
 # -- dispatch -------------------------------------------------------------------
 
+AUTO = "auto"
+
+
+def resolve_scan_device(device):
+    """``"auto"`` (after checking that the dispatch device resolves: it
+    raises without a card when it is the card) or a resolved pinned
+    torch.device."""
+    if isinstance(device, str) and device == AUTO:
+        from .batching import dispatch_device
+        dispatch_device()
+        return AUTO
+    return _cuda.resolve_device(device)
+
+
+def choose_lane(plan, nbytes: int) -> str:
+    """The measured plan's lane for this dispatch; NATIVE resolves to
+    HOST (no C++ select kernel), and the kernel lanes need a plan the
+    kernel can run (``lower_program``)."""
+    from ..obs.kernprof import DEVICE, HOST, NATIVE, TORCH_CPU
+    from .autotune import AUTOTUNE
+    lane = AUTOTUNE.decide(SELECT_SCAN, nbytes)
+    if lane == NATIVE:
+        lane = HOST
+    if lane in (DEVICE, TORCH_CPU) and lower_program(plan) is None:
+        lane = HOST
+    return lane
+
 
 def eval_predicate(plan, batch, device="cuda"
                    ) -> tuple[np.ndarray, np.ndarray]:
     """Evaluate a compiled predicate over one batch -> (pass mask,
     fallback mask); accounts the dispatch under kernel ``select_scan``
     with the lane that ran."""
+    from ..obs.kernprof import DEVICE, HOST, TORCH_CPU
     from ..qos import scheduler as qos_sched
     from ..s3select.compile import passing_mask
-    dev = _cuda.resolve_device(device)
+    from . import batching
+    device = resolve_scan_device(device)
+    auto = device == AUTO
     n = batch.nrows
     nbytes = plan_nbytes(plan, batch)
     blocks = max(1, len(plan.cols))
     with qos_sched.GATE.dispatch(qos_sched.BACKGROUND):
-        program = lower_program(plan)
+        if auto:
+            kernel_lane = choose_lane(plan, nbytes) in (DEVICE, TORCH_CPU)
+            dev = batching.dispatch_device() if kernel_lane else None
+        else:
+            kernel_lane, dev = True, device
+        program = lower_program(plan) if kernel_lane else None
         bound = bind_columns(plan, batch) if program is not None else None
         if bound is not None:
-            with timed() as t:
-                ok, fb = run_program(program, place_columns(bound, dev), n,
-                                     dev)
-            KERNEL.record(SELECT_SCAN, dev.type == "cuda", nbytes, t.s,
-                          blocks=blocks)
-            return ok, fb
+            try:
+                with timed() as t:
+                    ok, fb = run_program(program, place_columns(bound, dev),
+                                         n, dev)
+                KERNEL.record(SELECT_SCAN, dev.type == "cuda", nbytes, t.s,
+                              blocks=blocks,
+                              backend=batching.attempt_backend(dev))
+                return ok, fb
+            except Exception as exc:  # noqa: BLE001 - CPU lane failover
+                if not (auto and batching.device_dispatch_failed(exc, dev)):
+                    raise
         with timed() as t:
             vv = plan.eval_host(batch)
             ok, fb = passing_mask(vv, n)
-        KERNEL.record(SELECT_SCAN, False, nbytes, t.s, blocks=blocks)
+        KERNEL.record(SELECT_SCAN, False, nbytes, t.s, blocks=blocks,
+                      backend=HOST)
         return ok, fb
+
+
+# -- autotune probe -------------------------------------------------------------
+
+
+def probe_lane(lane: str, nrows: int) -> tuple[float | None, str]:
+    """One sized known-answer probe of a select lane: (bytes/s, "") or
+    (None, cause).  A REAL dispatch -- it routes through the
+    fault-injection `kernel` hook like the RS probes, so an active fault
+    plan keeps the lane unmeasured; a kernel build failure raises."""
+    import time as _time
+
+    from ..faultinject import FAULTS
+    from ..obs.kernprof import DEVICE, TORCH_CPU
+    from ..s3select import sql
+    from ..s3select.columnar import Column, ColumnBatch
+    from ..s3select.compile import Plan, lower, passing_mask
+    from . import batching
+
+    rng = np.random.default_rng(nrows)
+    a = rng.integers(0, 97, nrows).astype(np.float32)
+    b = rng.integers(0, 97, nrows).astype(np.float32)
+    cols = {"a": Column("a", "num", raw=a),
+            "b": Column("b", "num", raw=b)}
+    batch = ColumnBatch(["a", "b"], cols, nrows, int(a.nbytes * 2))
+    where = sql.BoolOp("and", sql.Cmp("<", sql.Col(("a",)),
+                                      sql.Lit(48)),
+                       sql.Cmp(">=", sql.Col(("b",)), sql.Lit(16)))
+    plan = Plan(lower(where, batch))
+    want = (a < 48) & (b >= 16)
+    try:
+        FAULTS.kernel(SELECT_SCAN)
+        if lane in (DEVICE, TORCH_CPU):
+            program = lower_program(plan)
+            bound = bind_columns(plan, batch) if program is not None \
+                else None
+            if bound is None:
+                return None, "kernel bind declined"
+            dev = batching.dispatch_device()
+            placed = place_columns(bound, dev)
+
+            def run():
+                return run_program(program, placed, nrows, dev)[0]
+        else:
+            def run():
+                return passing_mask(plan.eval_host(batch), nrows)[0]
+        got = run()   # warm: kernel build
+        t0 = _time.perf_counter()
+        got = run()
+        wall = _time.perf_counter() - t0
+        if not (np.asarray(got) == want).all():
+            return None, "known-answer mismatch"
+        return batch.nbytes / max(wall, 1e-9), ""
+    except _cuda.BuildFailed:
+        raise
+    except Exception as exc:  # noqa: BLE001 - a probe must not raise
+        return None, f"{type(exc).__name__}: {exc}"

@@ -4,8 +4,10 @@ Evaluate:398, NewS3Select:541).
 
 The port's own copy of ``minio_tpu/s3select/select.py``. ``run_select``
 takes a ``device``: the card (``"cuda"``, the default) runs the
-columnar scan's predicate kernel, ``"cpu"`` its plain version; without
-a card and without ``device="cpu"`` it raises.
+columnar scan's predicate kernel, ``"cpu"`` its plain version, and
+``"auto"`` the lane the codec autotuner measured fastest for each batch
+(ops/select_kernels.py ``choose_lane``); without a card and without
+``device="cpu"`` (or a CPU dispatch device under "auto") it raises.
 """
 
 from __future__ import annotations
@@ -224,7 +226,8 @@ def run_select(req: dict, data: bytes, device="cuda") -> bytes:
     referenced columns), BytesReturned = payload bytes.  The columnar
     scan's predicate dispatches run on ``device``."""
     from ..obs.span import TRACER
-    device = _cuda.resolve_device(device)
+    from ..ops.select_kernels import resolve_scan_device
+    device = resolve_scan_device(device)
     raw_len = len(data)
     processed = 0
     engine_used = "row"
