@@ -21,14 +21,24 @@ through the port's entry points at deployment size:
   REGEN class (12+4) on the same object through K1 at its (114 -> 240)
   and (114 -> 114) shapes, and ``full_step`` through the port's
   placement; kernprof must end with no dispatch failure and every lane
-  up.
+  up;
+- the storage layer (phase 17): ``format.json`` over 16 drives of one
+  set, the 259 MiB object committed to them (``create_file`` +
+  ``rename_data``, each ``part.1`` checked against the native lane's
+  digests), the deep bitrot scan (``XLStorage.verify_file``) of all 16
+  on the card through K2, a rotted frame caught on its drive alone, a
+  fault plan's drive error recorded by the drive monitor and its
+  corruption caught by the scan, and the LZ block codec of transparent
+  compression against a pin computed from the JAX package.
 
 Every phase asserts; any failure exits non-zero. Prints the card, the
 kernels' times beside their bounds, and as its last line
 ``{"ok": true, "device": {...}}``. Needs one card; exits non-zero without
 one, or without the rest of the repository beside it. It runs itself once
 more as ``chip_smoke.py --select-trace`` (phase 9's queries under
-torch.profiler, in a process of their own) and waits for it.
+torch.profiler, in a process of their own) and waits for it, and once
+as ``chip_smoke.py --storage-trace DIR`` (phase 17's deep scan of the
+drives under DIR, traced the same way).
 """
 
 import hashlib
@@ -57,6 +67,12 @@ FRAMED_DATA_FIRST_HASH = \
     "b2edb37d72d0a2d671c97136f0d594f5c9e68c6f6306ea8d4a8cd4fbffccb7d0"
 FRAMED_PARITY_SHA = \
     "af6ef90e7d207f11e86d5f98bd73364dd2fbfaa3dc6bebdea0235e5e350d0fc9"
+
+# sha256 of utils/compress.compress_stream over compressible_block(10 MiB),
+# computed from the JAX package (tests/test_torch_storage_utils.py).
+COMPRESS_PIN = \
+    "571e3fc66ab4f20851d0cff4cefb389ef16fbdcb6c1ad8f1ae9a71882605d572"
+STORAGE_DRIVES = 16
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, int8 tensor-core
 # operations/s, and the scalar 32-bit rate outside the tensor cores.
@@ -94,6 +110,18 @@ def smi_line() -> str:
 def pattern(np, n: int):
     i = np.arange(n, dtype=np.uint64)
     return ((i * 131 + 17) % 251).astype(np.uint8)
+
+
+def compressible_block(np, n: int):
+    """n bytes of text-like data made without an RNG: 8-byte words of 26
+    kinds, each picked by a multiplicative hash of the word's index."""
+    j = np.arange(-(-n // 8), dtype=np.uint64)
+    wid = ((j * np.uint64(2654435761)) % np.uint64(1 << 32)) \
+        >> np.uint64(26)
+    k = np.arange(8, dtype=np.uint64)
+    words = np.uint64(97) + (wid[:, None] * np.uint64(7)
+                             + k[None, :] * np.uint64(3)) % np.uint64(26)
+    return words.astype(np.uint8).reshape(-1)[:n]
 
 
 def events_ms(torch, fn, runs: int = 20, warmup: int = 3) -> float:
@@ -968,7 +996,7 @@ def coalescer_phase(np, torch, dev) -> dict:
           f"times, want 1")
     # One dispatch in all: a declined request would host-encode on its
     # own and count one more.
-    check(stats["cpu_dispatches"] + stats["gpu_dispatches"] == 1,
+    check(stats["cpu_dispatches"] + stats["tpu_dispatches"] == 1,
           f"the coalescer declined to the host: {stats}")
     for data, enc in outs:
         check(np.array_equal(enc, batching.host_encode(data, k, m)),
@@ -1191,6 +1219,312 @@ def final_health() -> None:
     check(not down, f"kernprof lanes not UP at the end: {down}")
     log("[health] kernprof: no dispatch failure, every lane up; lane mix "
         + json.dumps(KERNPROF.mix_snapshot()))
+
+
+# -- the storage layer (phase 17) ----------------------------------------------
+
+
+def storage_drives(root: str) -> list:
+    """The 16 drives of phase 17 under ``root``, hashing on the card."""
+    from minio_tpu_torch.storage.xl import XLStorage
+    return [XLStorage(str(Path(root) / f"d{i:02d}"), device="cuda")
+            for i in range(STORAGE_DRIVES)]
+
+
+def deep_scan(drives, fis) -> list:
+    """verify_file of the object on every drive: 'ok' or the class of
+    what it raised, per drive."""
+    out = []
+    for d, fi in zip(drives, fis):
+        try:
+            d.verify_file("bucket", "obj", fi)
+            out.append("ok")
+        except Exception as exc:  # noqa: BLE001 - the class is the verdict
+            out.append(type(exc).__name__)
+    return out
+
+
+def traced_storage_scan(root: str) -> dict:
+    """Phase 17's deep scan once more by ``chip_smoke.py --storage-trace
+    root`` in a process of its own (its torch.profiler session the first
+    of that process). Returns its wall, verdicts, K2 launches and device
+    µs by event."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--storage-trace", root], capture_output=True,
+                          text=True, timeout=600)
+    check(proc.returncode == 0, f"chip_smoke.py --storage-trace exited "
+          f"{proc.returncode}: {proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def storage_trace_main(root: str) -> None:
+    """``--storage-trace ROOT``: verify_file on the 16 drives of phase 17
+    under ROOT, after one warm-up scan of drive 0, under one
+    torch.profiler session; prints one JSON object {"wall_ms",
+    "verdicts", "launches", "device_us": by event name}."""
+    np, torch = setup()
+    from torch.profiler import ProfilerActivity, profile
+
+    from minio_tpu_torch.ops import hh256_gpu
+
+    drives = storage_drives(root)
+    fis = [d.read_version("bucket", "obj") for d in drives]
+    check(deep_scan(drives[:1], fis[:1]) == ["ok"], "warm-up scan")
+    torch.cuda.synchronize()
+    hh256_gpu.hash_chunks_cuda.launches = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        verdicts = deep_scan(drives, fis)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    print(json.dumps({"wall_ms": wall, "verdicts": verdicts,
+                      "launches": hh256_gpu.hash_chunks_cuda.launches,
+                      "device_us": device_us(prof)}), flush=True)
+
+
+def storage_phase(np, torch, payload) -> dict:
+    """17. The storage layer on the card, at the 12+4, 10 MiB-block
+    deployment of phase 6 with its 259 MiB object, over 16 drive
+    directories in one temporary directory: format, PUT commit, deep
+    scan (and its traced rerun), a rotted frame, drive faults, and the
+    compression codec. Returns the walls, the scan's K2 launches and its
+    trace."""
+    import os
+    import shutil
+    import struct
+    import tempfile
+
+    from minio_tpu_torch.erasure import bitrot
+    from minio_tpu_torch.erasure.codec import Erasure
+    from minio_tpu_torch.faultinject import FAULTS
+    from minio_tpu_torch.native import hh256_native, hh256_rows_native
+    from minio_tpu_torch.obs.drivemon import (DRIVEMON, op_class,
+                                              redacted_endpoint)
+    from minio_tpu_torch.obs.metrics2 import METRICS2
+    from minio_tpu_torch.ops.hh256 import MAGIC_KEY
+    from minio_tpu_torch.storage import errors as serr
+    from minio_tpu_torch.storage.format import (init_or_load_formats,
+                                                load_format)
+    from minio_tpu_torch.storage.metadata import (ErasureInfo, FileInfo,
+                                                  ObjectPartInfo,
+                                                  new_data_dir)
+    from minio_tpu_torch.storage.xl import MINIO_META_BUCKET, TMP_PATH
+    from minio_tpu_torch.utils import compress
+
+    k, m, bs = 12, 4, 10 * MIB
+    size = payload.size
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_storage_")
+    try:
+        drives = storage_drives(root)
+
+        # 1. Format: one set of 16; every format.json parses back, and a
+        #    restart re-reads the same topology.
+        t0 = time.perf_counter()
+        fmt, ordered, fresh = init_or_load_formats(drives)
+        format_ms = (time.perf_counter() - t0) * 1e3
+        check(len(fmt.sets) == 1 and len(fmt.sets[0]) == STORAGE_DRIVES
+              and fresh == [], f"format: sets {fmt.sets}, fresh {fresh}")
+        for i, d in enumerate(drives):
+            f = load_format(d)
+            check(f is not None and f.this == fmt.sets[0][i]
+                  and f.deployment_id == fmt.deployment_id
+                  and f.sets == fmt.sets, f"drive {i}: format.json")
+        again = init_or_load_formats(drives)
+        check(again[0].sets == fmt.sets and again[1] == drives
+              and again[2] == [], "format: the restart re-read differs")
+
+        # 2. PUT commit: K1 shards, K2 frames, then create_file under
+        #    .minio.sys/tmp and rename_data on each drive.
+        zero_launches()
+        codec = Erasure(k, m, block_size=bs, backend="gpu")
+        S = codec.shard_size()
+        nfull = size // bs
+        t0 = time.perf_counter()
+        full = np.zeros((nfull, k * S), dtype=np.uint8)
+        full[:, :bs] = payload[:nfull * bs].reshape(nfull, bs)
+        full_sm = codec.encode_blocks_batch_shardmajor(
+            full.reshape(nfull, k, S))
+        tail = codec.encode_data(payload[nfull * bs:])
+        frames = bitrot.encode_stream_arrays(list(full_sm), device="cuda")
+        tail_frames = bitrot.encode_streams(
+            [tail[j].tobytes() for j in range(k + m)], S, device="cuda")
+        put_ms = (time.perf_counter() - t0) * 1e3
+        put_launches = read_launches()
+        dd = new_data_dir()
+        algo = bitrot.HIGHWAYHASH256S
+        t0 = time.perf_counter()
+        for i, d in enumerate(drives):
+            d.make_volume("bucket")
+            stage = f"{TMP_PATH}/put"
+            d.create_file(MINIO_META_BUCKET, f"{stage}/{dd}/part.1",
+                          frames[i].tobytes() + tail_frames[i])
+            d.rename_data(MINIO_META_BUCKET, stage, FileInfo(
+                volume="bucket", name="obj", data_dir=dd, size=size,
+                mod_time=time.time(),
+                parts=[ObjectPartInfo(1, size, size)],
+                erasure=ErasureInfo(
+                    data_blocks=k, parity_blocks=m, block_size=bs,
+                    index=i + 1, distribution=list(range(1, k + m + 1)),
+                    checksums=[{"part": 1, "algorithm": algo,
+                                "hash": ""}])), "bucket", "obj")
+        commit_ms = (time.perf_counter() - t0) * 1e3
+        want_len = bitrot.bitrot_shard_file_size(codec.shard_file_size(size),
+                                                 S, algo)
+        fis = []
+        for i, d in enumerate(drives):
+            fi = d.read_version("bucket", "obj")
+            check(fi.data_dir == dd and fi.size == size
+                  and fi.erasure.index == i + 1
+                  and (fi.erasure.data_blocks, fi.erasure.parity_blocks,
+                       fi.erasure.block_size) == (k, m, bs)
+                  and [(p.number, p.size) for p in fi.parts] == [(1, size)]
+                  and fi.erasure.checksums[0]["algorithm"] == algo,
+                  f"drive {i}: xl.meta read back as {fi}")
+            fis.append(fi)
+            raw = np.frombuffer(d.read_all("bucket", f"obj/{dd}/part.1"),
+                                np.uint8)
+            check(raw.size == want_len, f"drive {i}: part.1 is {raw.size} "
+                  f"B, want {want_len}")
+            body = raw[:nfull * (32 + S)].reshape(nfull, 32 + S)
+            last = raw[nfull * (32 + S):]
+            check(np.array_equal(hh256_rows_native(body[:, 32:], MAGIC_KEY),
+                                 body[:, :32])
+                  and hh256_native(last[32:].tobytes(), MAGIC_KEY)
+                  == last[:32].tobytes(),
+                  f"drive {i}: a frame's hash != the native lane's hh256")
+            check(np.array_equal(body[:, 32:], full_sm[i])
+                  and np.array_equal(last[32:], tail[i]),
+                  f"drive {i}: part.1 does not hold the encoded shard")
+        del frames, tail_frames, full, full_sm
+
+        # 3. The deep scan of every drive on the card (K2 through
+        #    verify_file), its traced rerun in a process of its own, then
+        #    one byte rotted in frame 3 of drive 7.
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        verdicts = deep_scan(drives, fis)
+        torch.cuda.synchronize()
+        scan_ms = (time.perf_counter() - t0) * 1e3
+        scan_launches = read_launches()
+        check(verdicts == ["ok"] * STORAGE_DRIVES,
+              f"deep scan of the clean drives: {verdicts}")
+        check(scan_launches["hh256"] > 0 and scan_launches["gf_apply"] == 0
+              and scan_launches["select_scan"] == 0,
+              f"deep scan launches {scan_launches}")
+        trace = traced_storage_scan(root)
+        check(trace["verdicts"] == verdicts
+              and trace["launches"] == scan_launches["hh256"],
+              f"traced scan {trace['verdicts']}, {trace['launches']} K2 "
+              f"launches; this process {scan_launches['hh256']}")
+        path = os.path.join(drives[7].root, "bucket", "obj", dd, "part.1")
+        with open(path, "r+b") as f:
+            f.seek(3 * (32 + S) + 32 + 1000)
+            byte = f.read(1)
+            f.seek(-1, os.SEEK_CUR)
+            f.write(bytes([byte[0] ^ 0x5A]))
+        rotted = deep_scan(drives, fis)
+        check(rotted == ["FileCorrupt" if i == 7 else "ok"
+                         for i in range(STORAGE_DRIVES)],
+              f"deep scan after rotting drive 7: {rotted}")
+
+        # 4. Drive faults: read_all on drive 3 fails (FaultyDisk, recorded
+        #    by the drive monitor under read_all's class in the reference,
+        #    "read"), then corrupted reads on drive 5 are caught by the
+        #    scan; the plan is cleared after each.
+        check(op_class("read_all") == "read", "op_class(read_all)")
+
+        def errors_of(endpoint: str) -> float:
+            series = METRICS2.snapshot()[
+                "minio_tpu_v2_drive_op_errors_total"]["series"]
+            return sum(x["value"] for x in series if x["labels"] == {
+                "disk": redacted_endpoint(endpoint), "op_class": "read"})
+
+        def row_of(endpoint: str) -> dict:
+            return next((r for r in DRIVEMON.snapshot()["drives"]
+                         if r["endpoint"] == endpoint), {"errsTotal": 0})
+
+        ep3 = drives[3].root
+        errs0, metric0 = row_of(ep3)["errsTotal"], errors_of(ep3)
+        FAULTS.load_plan({"seed": 3, "rules": [
+            {"kind": "error", "target": ep3, "op": "read_all"}]})
+        try:
+            drives[3].read_all("bucket", "obj/xl.meta")
+            raised = None
+        except serr.FaultyDisk as exc:
+            raised = exc
+        finally:
+            FAULTS.clear()
+        check(raised is not None, "the error plan did not fail read_all")
+        check(row_of(ep3)["errsTotal"] == errs0 + 1
+              and errors_of(ep3) == metric0 + 1,
+              "DRIVEMON did not record the injected read_all fault as a "
+              "'read' error")
+        FAULTS.load_plan({"seed": 5, "rules": [
+            {"kind": "corrupt", "target": drives[5].root,
+             "op": "read_all"}]})
+        try:
+            corrupt = deep_scan(drives[5:6], fis[5:6])
+        finally:
+            FAULTS.clear()
+        check(corrupt == ["FileCorrupt"], f"filter_read corruption: "
+              f"verify_file gave {corrupt}")
+        check(deep_scan(drives[5:6], fis[5:6]) == ["ok"],
+              "drive 5 after the plan was cleared")
+
+        # 5. Transparent compression: one 10 MiB block through the native
+        #    LZ block lane (built by g++ here), against the JAX package's
+        #    bytes (COMPRESS_PIN).
+        block = compressible_block(np, 10 * MIB).tobytes()
+        t0 = time.perf_counter()
+        blob = compress.compress_stream(block)
+        c_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = compress.decompress_stream(blob)
+        d_s = time.perf_counter() - t0
+        flags, off = [], 4
+        while off < len(blob):
+            flag, _, csize = struct.unpack_from("<BII", blob, off)
+            flags.append(flag)
+            off += 9 + csize
+        check(back == block, "decompress_stream(compress_stream(x)) != x")
+        check(hashlib.sha256(blob).hexdigest() == COMPRESS_PIN,
+              "compress_stream bytes != the JAX package's (COMPRESS_PIN)")
+        check(set(flags) == {compress.F_LZB}, f"block flags {flags}: the "
+              f"native LZ lane did not code every block")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    dev = trace["device_us"]
+    hh_ms = sum(v for n, v in dev.items() if "hh256_kernel" in n) / 1e3
+    cp_ms = sum(v for n, v in dev.items() if "memcpy" in n.lower()) / 1e3
+    all_ms = sum(dev.values()) / 1e3
+    idle = 1 - all_ms / trace["wall_ms"] if all_ms else None
+    phase_s = time.perf_counter() - t_phase
+    log(f"[storage] 16 drives, 12+4, 10 MiB blocks, {size} B object: format "
+        f"{format_ms} ms; PUT encode + frame {put_ms} ms (launches "
+        f"{put_launches}); commit (create_file + rename_data) of 16 drives "
+        f"{commit_ms} ms; every part.1 == the native lane's hh256 and the "
+        f"encoded shard; every xl.meta read back")
+    log(f"[storage] deep scan (verify_file) of 16 drives on the card "
+        f"{scan_ms} ms, K2 launches {scan_launches['hh256']}; traced rerun "
+        f"in its own process: {trace['wall_ms']} ms wall, device time "
+        + (f"hh256 kernel {hh_ms} ms, host<->device copies {cp_ms} ms, all "
+           f"device work {all_ms} ms, device idle share {idle}"
+           if all_ms else "not measured (the profiler reported none)"))
+    log(f"[storage] rotted frame 3 of drive 7: FileCorrupt on drive 7 "
+        f"alone; error plan on drive 3's read_all: FaultyDisk, recorded by "
+        f"DRIVEMON as a 'read' error; corrupt plan on drive 5: FileCorrupt")
+    log(f"[storage] compress_stream of a 10 MiB block: {len(blob)} B "
+        f"({len(blob) / len(block)} of it), {gibs(len(block), c_s)} GiB/s, "
+        f"decompress {gibs(len(block), d_s)} GiB/s; sha256 == COMPRESS_PIN")
+    log(f"[storage] phase 17: {phase_s:.1f} s")
+    return {"launches": scan_launches["hh256"], "format_ms": format_ms,
+            "put_ms": put_ms, "commit_ms": commit_ms, "scan_ms": scan_ms,
+            "trace_wall_ms": trace["wall_ms"], "hh256_device_ms": hh_ms,
+            "copies_ms": cp_ms, "device_ms": all_ms, "idle_share": idle,
+            "phase_s": phase_s}
 
 
 def setup():
@@ -1520,6 +1854,9 @@ def main() -> None:
     log(f"[dispatch plane] phases 11-16: "
         f"{time.perf_counter() - t_plane:.1f} s")
 
+    # 17. The storage layer on the card.
+    storage = storage_phase(np, torch, payload)
+
     kernels = [
         {"name": "gf_apply", "route": "cuda",
          "source": "minio_tpu_torch/csrc/gf_apply.cu",
@@ -1548,7 +1885,11 @@ def main() -> None:
          "shape": f"hash_chunks ({HB}, {HL}) -> ({HB}, 32)",
          "plain_shape": f"({PB}, {HL}), the first {PB} rows",
          "lone_chain_ns_per_packet": lone_ms * 1e6 / (HL / 32),
-         "library_note": "no PyTorch call computes HighwayHash"},
+         "library_note": "no PyTorch call computes HighwayHash",
+         "storage": storage,
+         "launches_by_path": {
+             "auto": auto["launches"]["hh256"],
+             "storage": storage["launches"]}},
         {"name": "select_scan", "route": "cuda",
          "source": "minio_tpu_torch/csrc/select_scan.cu",
          "replaces": "minio_tpu/ops/select_kernels.py:163",
@@ -1572,5 +1913,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--select-trace"]:
         select_trace_main()
+    elif sys.argv[1:2] == ["--storage-trace"] and len(sys.argv) == 3:
+        storage_trace_main(sys.argv[2])
     else:
         main()

@@ -73,7 +73,7 @@ def _hh_rows(rows: np.ndarray, device) -> np.ndarray:
     hash_chunks call on ``device``, counted in HH_STATS."""
     dev = _cuda.resolve_device(device)
     digs = hh256_gpu.hash_chunks(_cuda.to_device(rows, dev), MAGIC_KEY)
-    batching.HH_STATS.add(dev.type == "cuda", rows.size)
+    batching.HH_STATS.add(True, rows.size)
     return digs.cpu().numpy()
 
 

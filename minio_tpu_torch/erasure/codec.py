@@ -157,7 +157,7 @@ class Erasure:
             blocks, self.data_blocks, self.parity_blocks,
             affinity=self.affinity, device=self.device,
             shardmajor=shardmajor)
-        batching.STATS.add(self.device.type == "cuda", blocks.nbytes)
+        batching.STATS.add(True, blocks.nbytes)
         return out
 
     # --- encode / decode ---

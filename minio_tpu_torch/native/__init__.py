@@ -2,10 +2,14 @@
 ctypes: the kernprof ``native`` lane.
 
 Port of minio_tpu/native/__init__.py. ``rs.cc`` (GF(2^8) matrix apply,
-nibble-shuffle tables) and ``highwayhash.cc`` are the reference's
-sources, byte for byte. They are compiled at first use into
-``minio_tpu_torch/build/native/`` (git-ignored), with ``-march=native``
-for the CPU the process runs on.
+nibble-shuffle tables), ``highwayhash.cc`` and ``lzblock.cc`` (the LZ
+block codec of utils/compress.py) are the reference's sources, byte for
+byte. They are compiled at first use into ``minio_tpu_torch/build/native/``
+(git-ignored), with ``-march=native`` for the CPU the process runs on.
+The library's file name carries a hash of the sources, the compiler
+flags and the host's CPU (the ``model name`` and ``flags`` lines of
+``/proc/cpuinfo``), so a build directory copied from another machine, or
+left by older sources, is never loaded: each key builds its own library.
 
 A failed build, or a built library that does not load, raises
 ``BuildFailed`` at first use: a missing or broken compiler is an
@@ -19,19 +23,53 @@ it.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 import threading
-import time
 
 from ..ops._cuda import BuildFailed
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build", "native")
-_SOURCES = ("highwayhash.cc", "rs.cc")
+_SOURCES = ("highwayhash.cc", "lzblock.cc", "rs.cc")
+_FLAGS = ("-O3", "-march=native", "-pthread", "-shared", "-fPIC")
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
 _TRIED = False
+
+
+def host_cpu(cpuinfo: str = "/proc/cpuinfo") -> str:
+    """The host's CPU as ``-march=native`` sees it: the first ``model
+    name`` and ``flags`` lines of ``cpuinfo``; the machine's architecture
+    where the file has neither."""
+    want = {"model name": "", "flags": ""}
+    try:
+        with open(cpuinfo, encoding="utf-8", errors="replace") as f:
+            for line in f:
+                name, sep, value = line.partition(":")
+                name = name.strip()
+                if sep and name in want and not want[name]:
+                    want[name] = value.strip()
+    except OSError:
+        pass
+    if not any(want.values()):
+        return platform.machine()
+    return f"{want['model name']}\n{want['flags']}"
+
+
+def library_path(cpu: str | None = None) -> str:
+    """Where the library built from the current sources and flags for
+    ``cpu`` (default: this host's, ``host_cpu()``) lives."""
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    h.update(b"\0" + (host_cpu() if cpu is None else cpu).encode())
+    for name in _SOURCES:
+        h.update(b"\0" + name.encode() + b"\0")
+        with open(os.path.join(_HERE, name), "rb") as f:
+            h.update(f.read())
+    return os.path.join(_BUILD_DIR,
+                        f"libminio_tpu_torch_native_{h.hexdigest()[:16]}.so")
 
 
 def _compile(srcs: list[str], so: str) -> None:
@@ -39,9 +77,8 @@ def _compile(srcs: list[str], so: str) -> None:
     tmp = f"{so}.{os.getpid()}.tmp"
     try:
         proc = subprocess.run(
-            ["g++", "-O3", "-march=native", "-pthread", "-shared", "-fPIC",
-             "-o", tmp] + srcs, capture_output=True, text=True,
-            timeout=120)
+            ["g++", *_FLAGS, "-o", tmp] + srcs, capture_output=True,
+            text=True, timeout=120)
     except (OSError, subprocess.TimeoutExpired) as exc:
         raise BuildFailed(f"g++ could not build the native kernels: "
                          f"{exc!r}") from exc
@@ -68,6 +105,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                    ctypes.c_size_t, ctypes.c_void_p,
                                    ctypes.c_size_t]
     lib.rs_gf_apply_mt.restype = None
+    lib.lzb_max_compressed.argtypes = [ctypes.c_size_t]
+    lib.lzb_max_compressed.restype = ctypes.c_size_t
+    lib.lzb_compress.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
+                                 ctypes.c_char_p, ctypes.c_size_t]
+    lib.lzb_compress.restype = ctypes.c_long
+    lib.lzb_decompress.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
+                                   ctypes.c_char_p, ctypes.c_size_t]
+    lib.lzb_decompress.restype = ctypes.c_long
     return lib
 
 
@@ -79,26 +124,13 @@ def _load(so: str) -> ctypes.CDLL:
 
 
 def _build_and_load() -> ctypes.CDLL:
-    srcs = [os.path.join(_HERE, s) for s in _SOURCES]
-    so = os.path.join(_BUILD_DIR, "libminio_tpu_torch_native.so")
-    if (not os.path.exists(so)
-            or any(os.path.getmtime(so) < os.path.getmtime(s)
-                   for s in srcs)):
-        _compile(srcs, so)
+    so = library_path()
+    if not os.path.exists(so):
+        _compile([os.path.join(_HERE, s) for s in _SOURCES], so)
     lib = _load(so)
-    if not hasattr(lib, "rs_gf_apply_mt"):  # newest symbol
-        # A stale cached .so predating a source (mtime preserved by a
-        # copy): rebuild rather than fail every native path on the
-        # missing symbol. The rebuild loads under a fresh name -- the
-        # dynamic loader hands back the stale library already mapped
-        # under `so` -- and then takes its place.
-        fresh = f"{so}.{os.getpid()}.{time.monotonic_ns()}"
-        _compile(srcs, fresh)
-        lib = _load(fresh)
-        os.replace(fresh, so)
     try:
         return _bind(lib)
-    except AttributeError as exc:  # a symbol is missing after a rebuild
+    except AttributeError as exc:  # a symbol is missing: a broken build
         raise BuildFailed(f"{so} lacks a native kernel: {exc}") from exc
 
 
@@ -249,3 +281,29 @@ def rs_apply_native(mat, data):
                         out.ctypes.data)
     return out
 
+
+def lzb_compress_native(data: bytes) -> bytes | None:
+    """LZ-block compress; None when the library is disabled OR the data
+    is incompressible (the caller stores raw either way)."""
+    lib = get_lib()
+    if lib is None or len(data) == 0:
+        return None
+    cap = lib.lzb_max_compressed(len(data))
+    out = ctypes.create_string_buffer(cap)
+    got = lib.lzb_compress(bytes(data), len(data), out, cap)
+    if got <= 0:
+        return None
+    return out.raw[:got]
+
+
+def lzb_decompress_native(blob: bytes, out_size: int) -> bytes | None:
+    """LZ-block decompress into at most ``out_size`` bytes; None when the
+    library is disabled; ValueError on a corrupt block."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    out = ctypes.create_string_buffer(max(out_size, 1))
+    got = lib.lzb_decompress(bytes(blob), len(blob), out, out_size)
+    if got < 0:
+        raise ValueError("corrupt lzb block")
+    return out.raw[:got]

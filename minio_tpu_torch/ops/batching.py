@@ -23,8 +23,12 @@ which lane runs it and on which device:
   window's requests span several.
 
 ``STATS`` counts every dispatch so tests can prove which lane did the
-math; its keys are the port's (``gpu_dispatches``, ``gpu_bytes``) where
-the reference says ``tpu_*``. A kernel-lane failure feeds the kernprof
+math, under the reference's keys (``tpu_dispatches``, ``tpu_bytes``,
+``cpu_dispatches``, ``cpu_bytes``, ``coalesced_requests``). Device work
+(``tpu_*``) is every dispatch of the kernel lane, on the card and on the
+``torch-cpu`` lane alike, as the reference counts its jit lane on any
+XLA device; the host lanes (``native``, ``host``) count as CPU work
+(``cpu_*``). A kernel-lane failure feeds the kernprof
 health machine (obs/kernprof.py). Only on the CPU lane (``torch-cpu``)
 does the dispatch then rerun on the host lanes: a failure on a card,
 and any build failure, reaches the caller, as on a pinned lane.
@@ -152,7 +156,8 @@ def _device_allowed(device_fallback: bool = True, device=None) -> bool:
 
 
 class DispatchStats:
-    """Thread-safe counters for codec dispatches (device vs host)."""
+    """Thread-safe counters for codec dispatches: device work (``tpu_*``,
+    any kernel-lane dispatch) vs host work (``cpu_*``)."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -160,8 +165,8 @@ class DispatchStats:
 
     def reset(self) -> None:
         with self._lock:
-            self.gpu_dispatches = 0
-            self.gpu_bytes = 0
+            self.tpu_dispatches = 0
+            self.tpu_bytes = 0
             self.cpu_dispatches = 0
             self.cpu_bytes = 0
             self.coalesced_requests = 0
@@ -169,8 +174,8 @@ class DispatchStats:
     def add(self, device: bool, nbytes: int, requests: int = 1) -> None:
         with self._lock:
             if device:
-                self.gpu_dispatches += 1
-                self.gpu_bytes += nbytes
+                self.tpu_dispatches += 1
+                self.tpu_bytes += nbytes
             else:
                 self.cpu_dispatches += 1
                 self.cpu_bytes += nbytes
@@ -180,8 +185,8 @@ class DispatchStats:
     def snapshot(self) -> dict:
         with self._lock:
             return {
-                "gpu_dispatches": self.gpu_dispatches,
-                "gpu_bytes": self.gpu_bytes,
+                "tpu_dispatches": self.tpu_dispatches,
+                "tpu_bytes": self.tpu_bytes,
                 "cpu_dispatches": self.cpu_dispatches,
                 "cpu_bytes": self.cpu_bytes,
                 "coalesced_requests": self.coalesced_requests,
@@ -440,7 +445,6 @@ def reconstruct_blocks(blocks: list[list[np.ndarray | None]], k: int,
     # promotes it after a bounded wait so background never starves.
     from ..qos import scheduler as qos_sched
     lane = qos_sched.current_lane()
-    on_card = _lane_type(device) == "cuda"
     for (avail, missing, S), idxs in groups.items():
         mat, used = any_decode_matrix(k, m, avail, missing)
         stack = np.stack([
@@ -458,7 +462,7 @@ def reconstruct_blocks(blocks: list[list[np.ndarray | None]], k: int,
                     FAULTS.kernel("rs_decode")
                     rebuilt = _device_reconstruct(stack, k, m, avail,
                                                   missing, affinity, device)
-                    STATS.add(on_card, stack.nbytes, len(idxs))
+                    STATS.add(True, stack.nbytes, len(idxs))
                 except Exception as exc:
                     if not (device_fallback
                             and device_dispatch_failed(exc, device)):
@@ -686,7 +690,7 @@ class EncodeCoalescer:
                         B = r.blocks.shape[0]
                         r.result = encoded[off:off + B]
                         off += B
-                STATS.add(_dispatch_type == "cuda", total, len(reqs))
+                STATS.add(True, total, len(reqs))
                 if len(reqs) > 1:
                     # device_encode counted the dispatch itself; the
                     # coalescing win (requests merged per window) is only

@@ -302,9 +302,9 @@ def apply_regen(mat: np.ndarray, cols: np.ndarray, *,
             try:
                 from ..faultinject import FAULTS
                 FAULTS.kernel(REGEN_CODE)
-                out, on_card = _device_apply(mat, bitplane, cols, affinity,
-                                             blocks, device)
-                batching.STATS.add(on_card, nbytes, 1)
+                out = _device_apply(mat, bitplane, cols, affinity, blocks,
+                                    device)
+                batching.STATS.add(True, nbytes, 1)
                 return out
             except Exception as exc:
                 if not (device_fallback
@@ -322,9 +322,9 @@ def apply_regen(mat: np.ndarray, cols: np.ndarray, *,
 
 def _device_apply(mat: np.ndarray, bitplane, cols: np.ndarray,
                   affinity: int | None, blocks: int,
-                  device=None) -> tuple[np.ndarray, bool]:
+                  device=None) -> np.ndarray:
     """K1 over the (1, B, S) batch on the kernel lane, split over the
-    serving mesh like any batch; (result, ran on a card)."""
+    serving mesh like any batch."""
     from ..obs.kernel_stats import KERNEL, timed
     from . import batching, rs_gpu
     with timed() as t:
@@ -338,7 +338,7 @@ def _device_apply(mat: np.ndarray, bitplane, cols: np.ndarray,
     dev = placed.device
     KERNEL.record(REGEN_CODE, dev.type == "cuda", cols.nbytes, t.s,
                   blocks=blocks, backend=batching.attempt_backend(dev))
-    return out, dev.type == "cuda"
+    return out
 
 
 # --- probe (ops/autotune ladder) ----------------------------------------------

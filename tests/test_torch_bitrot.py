@@ -137,7 +137,7 @@ def test_verify_frames_flags_corruption():
     ok = bitrot.verify_frames(datas, wants, device=CPU)
     assert ok == [True, True, False, True, True, True, False]
     snap = batching.HH_STATS.snapshot()
-    assert snap["cpu_dispatches"] == 2 and snap["gpu_dispatches"] == 0
+    assert snap["tpu_dispatches"] == 2 and snap["cpu_dispatches"] == 0
     framed = bytearray(bitrot.encode_stream(_rand(13, 300), 128,
                                             device=CPU))
     framed[40] ^= 1

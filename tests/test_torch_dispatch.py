@@ -287,11 +287,9 @@ def test_encode_coalescer_matches_jax(case, monkeypatch):
         assert np.array_equal(got, want)
         assert np.array_equal(got, _encode_ref(data, 4, 2))
     p_stats, r_stats = port[1], ref[1]
-    # A kernel-lane dispatch counts as tpu_* in the JAX package (its jit
-    # path) and, on the CPU dispatch device, as cpu_* in the port.
-    assert p_stats["coalesced_requests"] == r_stats["coalesced_requests"]
-    assert p_stats["cpu_dispatches"] == \
-        r_stats["cpu_dispatches"] + r_stats["tpu_dispatches"]
+    # A kernel-lane dispatch counts as tpu_* in both packages: the JAX
+    # package's jit lane on XLA's CPU, the port's torch-cpu lane.
+    assert p_stats == r_stats
     assert port[2] == ref[2]          # kernel-lane dispatches
     assert port[3] == ref[3]          # fan-outs
     assert port[4] == ref[4]          # per-device placement census
@@ -368,10 +366,7 @@ def test_reconstruct_blocks_matches_jax(want_all, lane, monkeypatch):
             assert (g is None) == (w is None)
             if g is not None:
                 assert np.array_equal(g, w)
-    ps, rs = batching.STATS.snapshot(), ref_batching.STATS.snapshot()
-    assert ps["coalesced_requests"] == rs["coalesced_requests"]
-    assert ps["cpu_dispatches"] == rs["cpu_dispatches"] + \
-        rs["tpu_dispatches"]
+    assert batching.STATS.snapshot() == ref_batching.STATS.snapshot()
     pm, rm = kp.KERNPROF.mix_snapshot(), ref_kp.KERNPROF.mix_snapshot()
     assert {LANE[k]: v["dispatches"] for k, v in rm.items()} == \
         {k: v["dispatches"] for k, v in pm.items()}
@@ -1007,7 +1002,7 @@ def test_bitrot_auto_matches_jax(fn):
     batching.HH_STATS.reset()
     got = BITROT[fn](bitrot, {"device": "auto"})
     assert got == BITROT[fn](ref_bitrot, {})
-    assert batching.HH_STATS.snapshot()["gpu_dispatches"] == 0
+    assert batching.HH_STATS.snapshot()["tpu_dispatches"] == 0
     assert kp.KERNPROF.mix_snapshot()[kp.TORCH_CPU]["dispatches"] == 0
 
 
@@ -1030,9 +1025,46 @@ def test_bitrot_auto_device_route(B, monkeypatch):
     assert got == ref_bitrot.digest_chunks_many(
         ref_bitrot.DEFAULT_ALGORITHM, streams, 300)
     ps, rs = batching.HH_STATS.snapshot(), ref_batching.HH_STATS.snapshot()
-    assert (ps["gpu_dispatches"], ps["coalesced_requests"]) == \
+    assert (ps["tpu_dispatches"], ps["coalesced_requests"]) == \
         (rs["tpu_dispatches"], rs["coalesced_requests"]) == (1, 2)
     assert kp.KERNPROF.mix_snapshot()[kp.TORCH_CPU]["dispatches"] == 1
+
+
+def test_dispatch_counters_match_jax_key_for_key(monkeypatch):
+    """One dispatch sequence through both packages -- the JAX package on
+    its xla-cpu device lane, the port on torch-cpu: pinned RS encode,
+    a coalesced window of several PUTs, a mask-grouped reconstruct, a
+    host encode, and bitrot rows on the device lane and on the host.
+    ``STATS`` and ``HH_STATS`` read the same keys and the same counts:
+    every kernel-lane dispatch is device work (``tpu_*``) in both."""
+    k, m, S = 4, 2, 1024
+    blocks = _rows(90, 3 * k, S).reshape(3, k, S)
+    for pkg, mod in ((batching, bitrot), (ref_batching, ref_bitrot)):
+        monkeypatch.setattr(pkg, "_device_present", True)
+        monkeypatch.setattr(pkg, "_device_count", N_VIRTUAL)
+        monkeypatch.setattr(mod, "HH_TPU_MIN_BYTES", 1024)
+    reqs, policy, window, fail = COALESCE["merge"]
+    snaps = []
+    for pkg, codec, mod, extra in (
+            (batching, Erasure(k, m, block_size=k * S, backend="cpu"),
+             bitrot, {"device": "auto"}),
+            (ref_batching, RefErasure(k, m, block_size=k * S,
+                                      backend="tpu"), ref_bitrot, {})):
+        pkg.HH_STATS.reset()
+        _run_coalescer(pkg, reqs, policy, window, fail, monkeypatch)
+        enc = codec.encode_blocks_batch(blocks)
+        lost = [[None if j in (0, 5) else enc[b, j] for j in range(k + m)]
+                for b in range(3)]
+        codec.decode_data_blocks_batch(lost)
+        pkg.host_encode(blocks, k, m)
+        mod.digest_rows(mod.DEFAULT_ALGORITHM, _rows(91, 8, 640), **extra)
+        mod.digest_rows(mod.DEFAULT_ALGORITHM, _rows(92, 1, 64), **extra)
+        snaps.append((pkg.STATS.snapshot(), pkg.HH_STATS.snapshot()))
+    (p_rs, p_hh), (r_rs, r_hh) = snaps
+    assert p_rs == r_rs
+    assert p_hh == r_hh
+    assert p_rs["tpu_dispatches"] == 3 and p_rs["cpu_dispatches"] == 1
+    assert p_hh["tpu_dispatches"] == 1 and p_hh["cpu_dispatches"] == 1
 
 
 # ---------------------------------------------------------------------------

@@ -2,12 +2,16 @@
 host kernels, built by the port's own loader into
 minio_tpu_torch/build/native/, held byte for byte to the JAX package's
 build of the same sources -- GF(2^8) apply (single- and multi-threaded),
-HighwayHash-256 (one-shot, chunks, rows) -- plus the loader's contract:
-a stale library is rebuilt, a failed build or a library that does not
-load raises BuildFailed (never a lane state), and only probe() re-adopts
-a library that ``_disable_native`` distrusted."""
+HighwayHash-256 (one-shot, chunks, rows), the LZ block codec -- plus the
+loader's contract: the library is named by its sources, flags and host
+CPU, so one built from older sources or for another host is never
+loaded; a failed build or a library that does not load raises
+BuildFailed (never a lane state); and only probe() re-adopts a library
+that ``_disable_native`` distrusted."""
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import pytest
@@ -158,23 +162,101 @@ def test_disable_then_probe_readopts_like_jax(libs):
 
 
 def test_stale_library_is_rebuilt(tmp_path, monkeypatch):
-    """A cached library without the newest symbol (an old build whose
-    mtime a copy preserved) is rebuilt, not used."""
+    """A cached library built from older sources (an old build a copy
+    carried along) sits under another name: it is never loaded, and the
+    current sources build and load under their own."""
+    import shutil
     import subprocess
+    old_src = tmp_path / "src"
+    shutil.copytree(native._HERE, old_src,
+                    ignore=shutil.ignore_patterns("*.py", "__pycache__"))
+    with open(old_src / "rs.cc", "a") as f:
+        f.write("// an older revision\n")
+    build = tmp_path / "build"
+    here = native._HERE
+    monkeypatch.setattr(native, "_BUILD_DIR", str(build))
+    monkeypatch.setattr(native, "_HERE", str(old_src))
+    stale = native.library_path()
+    monkeypatch.setattr(native, "_HERE", here)
+    assert stale != native.library_path()
     stub = tmp_path / "stub.cc"
     stub.write_text('extern "C" int hh256_hash() { return 0; }\n')
-    so = tmp_path / "libminio_tpu_torch_native.so"
-    subprocess.run(["g++", "-shared", "-fPIC", "-o", str(so), str(stub)],
+    build.mkdir()
+    subprocess.run(["g++", "-shared", "-fPIC", "-o", stale, str(stub)],
                    check=True)
-    monkeypatch.setattr(native, "_BUILD_DIR", str(tmp_path))
     monkeypatch.setattr(native, "_LIB", None)
     monkeypatch.setattr(native, "_TRIED", False)
     lib = native.get_lib()
+    assert lib._name == native.library_path()
     assert hasattr(lib, "rs_gf_apply_mt")
     data = _rng(4).integers(0, 256, (4, 99)).astype(np.uint8)
     pm = parity_matrix(4, 2)
     assert np.array_equal(native.rs_apply_native(pm, data),
                           ref_native.rs_apply_native(pm, data))
+
+
+CPU_A = "Intel(R) Xeon(R) Platinum 8480+\nfpu sse2 avx2 avx512f amx_tile"
+CPU_B = "AMD EPYC 9654 96-Core Processor\nfpu sse2 avx2 avx512f"
+
+
+@pytest.mark.parametrize("change", ["host", "flags", "source"])
+def test_library_name_keys_sources_flags_and_host(change, tmp_path,
+                                                  monkeypatch):
+    """Two host CPUs, two flag sets or two source revisions give two
+    library paths; the same inputs give the same path."""
+    before = native.library_path(CPU_A)
+    assert native.library_path(CPU_A) == before
+    if change == "host":
+        after = native.library_path(CPU_B)
+    elif change == "flags":
+        monkeypatch.setattr(native, "_FLAGS",
+                            tuple(f for f in native._FLAGS
+                                  if f != "-march=native"))
+        after = native.library_path(CPU_A)
+    else:
+        import shutil
+        src = tmp_path / "src"
+        shutil.copytree(native._HERE, src,
+                        ignore=shutil.ignore_patterns("*.py", "__pycache__"))
+        with open(src / "highwayhash.cc", "a") as f:
+            f.write("\n")
+        monkeypatch.setattr(native, "_HERE", str(src))
+        after = native.library_path(CPU_A)
+    assert after != before
+    assert os.path.dirname(after) == os.path.dirname(before)
+
+
+def test_host_cpu_reads_model_and_flags(tmp_path):
+    info = tmp_path / "cpuinfo"
+    info.write_text("processor\t: 0\nmodel name\t: CPU X\nflags\t\t: a b\n"
+                    "processor\t: 1\nmodel name\t: CPU X\nflags\t\t: a b\n")
+    assert native.host_cpu(str(info)) == "CPU X\na b"
+    other = tmp_path / "other"
+    other.write_text("model name\t: CPU X\nflags\t\t: a b c\n")
+    assert native.host_cpu(str(other)) != native.host_cpu(str(info))
+    assert native.host_cpu(str(tmp_path / "absent")) != ""
+
+
+def test_library_of_another_host_is_not_loaded(libs, tmp_path,
+                                               monkeypatch):
+    """A library planted under another host's key -- here one that would
+    not even load -- is never picked up: this host loads its own."""
+    import shutil
+    mine = native.library_path()
+    monkeypatch.setattr(native, "_BUILD_DIR", str(tmp_path))
+    shutil.copy(mine, native.library_path())
+    theirs = native.library_path(CPU_B)
+    assert theirs != native.library_path()
+    with open(theirs, "wb") as f:
+        f.write(b"a library built for another CPU")
+    monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setattr(native, "_TRIED", False)
+    lib = native.get_lib()
+    assert lib._name == native.library_path()
+    assert native.hh256_native(b"x" * 99, MAGIC_KEY) == \
+        ref_native.hh256_native(b"x" * 99, MAGIC_KEY)
+    with open(theirs, "rb") as f:
+        assert f.read() == b"a library built for another CPU"
 
 
 @pytest.mark.parametrize("failure", ["no compiler", "compile error",
@@ -196,9 +278,9 @@ def test_failed_build_raises_and_is_no_lane_state(tmp_path, monkeypatch,
     monkeypatch.setattr(native, "_LIB", None)
     monkeypatch.setattr(native, "_TRIED", False)
     if failure == "does not load":
-        # Newer than every source, so it is taken as built.
-        (tmp_path / "libminio_tpu_torch_native.so").write_bytes(
-            b"not a shared object")
+        # Under the current key, so it is taken as built.
+        with open(native.library_path(), "wb") as f:
+            f.write(b"not a shared object")
     else:
         monkeypatch.setattr(native.subprocess, "run", broken)
     with pytest.raises(_cuda.BuildFailed):

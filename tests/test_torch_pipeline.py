@@ -89,7 +89,7 @@ def test_reconstruct_groups_one_dispatch_per_mask():
     batching.STATS.reset()
     port.decode_data_blocks_batch(blocks)
     snap = batching.STATS.snapshot()
-    assert snap["cpu_dispatches"] == 1 and snap["coalesced_requests"] == 5
+    assert snap["tpu_dispatches"] == 1 and snap["coalesced_requests"] == 5
     with pytest.raises(batching.ReconstructError):
         port.decode_data_blocks([None, None, None, enc[0, 3], enc[0, 4],
                                  None])
