@@ -29,7 +29,14 @@ through the port's entry points at deployment size:
   on the card through K2, a rotted frame caught on its drive alone, a
   fault plan's drive error recorded by the drive monitor and its
   corruption caught by the scan, and the LZ block codec of transparent
-  compression against a pin computed from the JAX package.
+  compression against a pin computed from the JAX package;
+- the erasure engine (phase 18): the server's stack (ErasureServerPools
+  over ErasureSets, 16 drives at 12+4, 10 MiB blocks, on the card) takes
+  the 259 MiB object through PUT (each part.1 equal to phase 17's by
+  erasure index), GET, a ranged GET and the listing, a degraded GET with
+  two drives lost and a rotted frame, heal and the MRF queue, a
+  three-part multipart upload, the boot recovery sweep and shutdown, with
+  the K1 and K2 launches of each step.
 
 Every phase asserts; any failure exits non-zero. Prints the card, the
 kernels' times beside their bounds, and as its last line
@@ -38,7 +45,9 @@ one, or without the rest of the repository beside it. It runs itself once
 more as ``chip_smoke.py --select-trace`` (phase 9's queries under
 torch.profiler, in a process of their own) and waits for it, and once
 as ``chip_smoke.py --storage-trace DIR`` (phase 17's deep scan of the
-drives under DIR, traced the same way).
+drives under DIR, traced the same way), and once as ``chip_smoke.py
+--engine-trace DIR`` (phase 18's PUT and degraded GET over a fresh stack
+under DIR, traced the same way).
 """
 
 import hashlib
@@ -1371,7 +1380,7 @@ def storage_phase(np, torch, payload) -> dict:
         commit_ms = (time.perf_counter() - t0) * 1e3
         want_len = bitrot.bitrot_shard_file_size(codec.shard_file_size(size),
                                                  S, algo)
-        fis = []
+        fis, part_sha = [], {}
         for i, d in enumerate(drives):
             fi = d.read_version("bucket", "obj")
             check(fi.data_dir == dd and fi.size == size
@@ -1384,6 +1393,7 @@ def storage_phase(np, torch, payload) -> dict:
             fis.append(fi)
             raw = np.frombuffer(d.read_all("bucket", f"obj/{dd}/part.1"),
                                 np.uint8)
+            part_sha[fi.erasure.index] = hashlib.sha256(raw).hexdigest()
             check(raw.size == want_len, f"drive {i}: part.1 is {raw.size} "
                   f"B, want {want_len}")
             body = raw[:nfull * (32 + S)].reshape(nfull, 32 + S)
@@ -1524,7 +1534,351 @@ def storage_phase(np, torch, payload) -> dict:
             "put_ms": put_ms, "commit_ms": commit_ms, "scan_ms": scan_ms,
             "trace_wall_ms": trace["wall_ms"], "hh256_device_ms": hh_ms,
             "copies_ms": cp_ms, "device_ms": all_ms, "idle_share": idle,
-            "phase_s": phase_s}
+            "phase_s": phase_s, "part_sha": part_sha}
+
+
+# -- the erasure engine (phase 18) ---------------------------------------------
+
+# Phase 18's multipart upload: two parts of 64 MiB and a last one of 5 MiB + 3 B.
+MPU_PARTS = (64 * MIB, 64 * MIB, 5 * MIB + 3)
+# Erasure shards (0-based) whose drives lose the object in the degraded GET,
+# as phase 6 loses data shards 0 and 5, and the shard whose drive gets one
+# byte rotted in frame 3.
+LOST_SHARDS = (0, 5)
+ROT_SHARD = 7
+
+
+def engine_stack(root: str, dev):
+    """The server's stack over 16 fresh drives under ``root`` on the card:
+    format.json by init_or_load_formats (one set of 16), ErasureSets at
+    12+4 with 10 MiB blocks (MinIO's EC:4) in one ErasureServerPools.
+    Returns (pools, the set's engine)."""
+    from minio_tpu_torch.erasure.pools import ErasureServerPools
+    from minio_tpu_torch.erasure.sets import ErasureSets
+    from minio_tpu_torch.storage.format import init_or_load_formats
+    from minio_tpu_torch.storage.xl import XLStorage
+
+    drives = [XLStorage(str(Path(root) / f"d{i:02d}"), device=dev)
+              for i in range(STORAGE_DRIVES)]
+    fmt, ordered, fresh = init_or_load_formats(drives)
+    check(len(fmt.sets) == 1 and len(fmt.sets[0]) == STORAGE_DRIVES
+          and fresh == [], f"engine format: sets {fmt.sets}, fresh {fresh}")
+    sets = ErasureSets(ordered, [STORAGE_DRIVES], fmt.deployment_id, 12, 4,
+                       backend="gpu", device=dev)
+    check(sets.sets[0].block_size == 10 * MIB, "engine block size")
+    return ErasureServerPools([sets]), sets.sets[0]
+
+
+def engine_parts(eng, name: str) -> dict:
+    """{erasure index: (drive position, sha256 of its part.1, its
+    FileInfo)} of object ``name`` in "bucket" on every drive of ``eng``."""
+    out = {}
+    for i, d in enumerate(eng.disks):
+        fi = d.read_version("bucket", name)
+        raw = Path(d.root, "bucket", name, fi.data_dir, "part.1").read_bytes()
+        out[fi.erasure.index] = (i, hashlib.sha256(raw).hexdigest(), fi)
+    return out
+
+
+def engine_degrade(eng, parts: dict, S: int) -> tuple:
+    """Remove "obj" from the drives of LOST_SHARDS and rot one byte of
+    frame 3 in the part.1 of ROT_SHARD's drive. Returns (lost drive
+    positions, rotted drive position)."""
+    import os
+    import shutil
+
+    lost = [parts[j + 1][0] for j in LOST_SHARDS]
+    for i in lost:
+        shutil.rmtree(Path(eng.disks[i].root, "bucket", "obj"))
+    rot, _, fi = parts[ROT_SHARD + 1]
+    path = Path(eng.disks[rot].root, "bucket", "obj", fi.data_dir, "part.1")
+    with open(path, "r+b") as f:
+        f.seek(3 * (32 + S) + 32 + 1000)
+        byte = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([byte[0] ^ 0x5A]))
+    return lost, rot
+
+
+def window_device_ms(prof, names) -> dict:
+    """Device time (ms) of a torch.profiler session inside each
+    record_function window of ``names``: {name: {"device_ms", "gf_apply_ms",
+    "hh256_ms", "copies_ms", "top": the six largest (event, ms)}}, or None
+    for a window with no device event. The windows' own annotations, which
+    the profiler also lays on the device timeline, are not device work."""
+    from torch.autograd import DeviceType
+
+    evs = list(prof.events())
+    devs = [e for e in evs if e.device_type == DeviceType.CUDA
+            and e.name not in names]
+    out = {}
+    for name in names:
+        win = next((e.time_range for e in evs if e.name == name), None)
+        inside = [e for e in devs if win is not None
+                  and win.start <= e.time_range.start < win.end]
+        if not inside:
+            out[name] = None
+            continue
+
+        def ms(pred, inside=inside):
+            return sum(e.time_range.end - e.time_range.start
+                       for e in inside if pred(e.name)) / 1e3
+        by_name = {}
+        for e in inside:
+            by_name[e.name] = by_name.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3
+        out[name] = {"device_ms": ms(lambda n: True),
+                     "gf_apply_ms": ms(lambda n: "gf_apply_kernel" in n),
+                     "hh256_ms": ms(lambda n: "hh256_kernel" in n),
+                     "copies_ms": ms(lambda n: "memcpy" in n.lower()),
+                     "top": sorted(by_name.items(),
+                                   key=lambda kv: -kv[1])[:6]}
+    return out
+
+
+def traced_engine(root: str) -> dict:
+    """Phase 18's PUT and degraded GET once more by ``chip_smoke.py
+    --engine-trace root`` in a process of its own (its torch.profiler
+    session the first of that process)."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--engine-trace", root], capture_output=True,
+                          text=True, timeout=600)
+    check(proc.returncode == 0, f"chip_smoke.py --engine-trace exited "
+          f"{proc.returncode}: {proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def engine_trace_main(root: str) -> None:
+    """``--engine-trace ROOT``: a fresh stack of phase 18 over 16 drives
+    under ROOT; a warm-up PUT + GET of one block, then the 259 MiB PUT and,
+    after the drives of shards 0 and 5 lose it and shard 7's drive rots
+    frame 3, the degraded GET, both in one torch.profiler session with a
+    record_function window each. Prints one JSON object {"put_wall_ms",
+    "get_wall_ms", "put_sha_ok", "get_sha_ok", "windows": by window,
+    "session_device_ms": all device time of the session}."""
+    np, torch = setup()
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    dev = torch.device("cuda", 0)
+    data = np.random.default_rng(1).integers(
+        0, 256, 256 * MIB + 3 * MIB, dtype=np.uint8).tobytes()
+    want_sha = hashlib.sha256(data).hexdigest()
+    pools, eng = engine_stack(root, dev)
+    pools.make_bucket("bucket")
+    pools.put_object("bucket", "warm", data[:10 * MIB + 1])
+    check(pools.get_object("bucket", "warm")[0] == data[:10 * MIB + 1],
+          "warm-up GET")
+    eng.mrf.start = lambda: None    # as in phase 18: the queue waits
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            with record_function("engine.put"):
+                info = pools.put_object("bucket", "obj", data)
+                torch.cuda.synchronize()
+            put_ms = (time.perf_counter() - t0) * 1e3
+            parts = engine_parts(eng, "obj")
+            engine_degrade(eng, parts, eng.codec.shard_size())
+            t0 = time.perf_counter()
+            with record_function("engine.degraded_get"):
+                got, _ = pools.get_object("bucket", "obj")
+                torch.cuda.synchronize()
+            get_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        pools.shutdown()
+    print(json.dumps({
+        "put_wall_ms": put_ms, "get_wall_ms": get_ms,
+        "put_sha_ok": info.etag == hashlib.md5(data).hexdigest(),
+        "get_sha_ok": hashlib.sha256(got).hexdigest() == want_sha,
+        "windows": window_device_ms(prof, ("engine.put",
+                                           "engine.degraded_get")),
+        "session_device_ms": sum(device_us(prof).values()) / 1e3}),
+        flush=True)
+
+
+def engine_phase(np, torch, dev, payload, want_sha: str,
+                 part_sha: dict) -> dict:
+    """18. The erasure engine on the card: the server's stack (16 drives,
+    one set, 12+4, 10 MiB blocks) takes phase 6's 259 MiB object through
+    PUT, GET (full and ranged) and listing, a degraded GET, heal and the
+    MRF queue, a three-part multipart upload, the boot recovery sweep and
+    shutdown, every step asserted; the PUT and degraded GET once more under
+    torch.profiler (``--engine-trace``). Returns the walls and the K1 / K2
+    launches of each step and the traced device times."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    from minio_tpu_torch.storage.recovery import sweep_layer
+    from minio_tpu_torch.storage.xl import TMP_DIR
+
+    t_phase = time.perf_counter()
+    before = set(threading.enumerate())
+    walls, launches = {}, {}
+
+    def step(name: str, fn):
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t0) * 1e3
+        got = read_launches()
+        launches[name] = {"gf_apply": got["gf_apply"], "hh256": got["hh256"]}
+        check(got["select_scan"] == 0, f"engine {name} launched X2")
+        return out
+
+    def sha(b: bytes) -> str:
+        return hashlib.sha256(b).hexdigest()
+
+    data = payload.tobytes()
+    size, bs = len(data), 10 * MIB
+    root = tempfile.mkdtemp(prefix="chip_smoke_engine_")
+    trace_root = tempfile.mkdtemp(prefix="chip_smoke_engine_trace_")
+    try:
+        pools, eng = engine_stack(root, dev)
+        S = eng.codec.shard_size()
+        pools.make_bucket("bucket")
+
+        # 1. PUT: ETag = md5; each drive's part.1 == the framed shard that
+        #    phase 17 committed for its erasure index.
+        info = step("put", lambda: pools.put_object("bucket", "obj", data))
+        check(info.size == size and info.etag == hashlib.md5(data).hexdigest(),
+              f"PUT: size {info.size}, etag {info.etag}")
+        parts = engine_parts(eng, "obj")
+        check(sorted(parts) == list(range(1, STORAGE_DRIVES + 1)),
+              f"PUT: erasure indices {sorted(parts)}")
+        for idx, (i, h, _) in parts.items():
+            check(h == part_sha[idx], f"PUT: drive {i}'s part.1 (index {idx}) "
+                  f"!= phase 17's framed shard")
+
+        # 2. GET: full, a 3 MiB range across blocks 6 and 7, the listing.
+        got, _ = step("get", lambda: pools.get_object("bucket", "obj"))
+        check(sha(got) == want_sha, "GET sha256 != the payload's")
+        del got
+        off, ln = 7 * bs - 3 * MIB // 2, 3 * MIB
+        got, _ = step("ranged_get", lambda: pools.get_object(
+            "bucket", "obj", offset=off, length=ln))
+        check(got == data[off:off + ln], "ranged GET across blocks 6 and 7")
+        names = [o.name for o in pools.list_objects("bucket")]
+        check(names == ["obj"], f"list_objects: {names}")
+
+        # 3. Degraded GET: shards 0 and 5 lost, frame 3 of shard 7 rotted.
+        #    The MRF worker is held back, so the queue keeps what the GET
+        #    adds until step 4 heals through the heal front and drains it.
+        eng.mrf.start = lambda: None
+        lost, rot = engine_degrade(eng, parts, S)
+        got, _ = step("degraded_get",
+                      lambda: pools.get_object("bucket", "obj"))
+        check(sha(got) == want_sha, "degraded GET sha256 != the payload's")
+        del got
+        check(eng.mrf.depth() == 1 and ("bucket", "obj") in eng.mrf._queued,
+              f"MRF after the degraded GET: depth {eng.mrf.depth()}")
+
+        # 4. Heal through the pools' heal front, then drain the MRF queue:
+        #    every drive's part.1 and xl.meta as after the PUT.
+        res = step("heal", lambda: pools.healer.heal_object("bucket", "obj"))
+        check(sorted(res.healed_disks) == sorted(lost + [rot])
+              and res.after_ok == STORAGE_DRIVES and not res.dangling,
+              f"heal: {res}")
+        step("mrf_drain", eng.mrf.drain)
+        del eng.mrf.start
+        check(eng.mrf.depth() == 0 and not eng.mrf._queued, "MRF not drained")
+        healed = engine_parts(eng, "obj")
+        for idx, (i, h, fi) in parts.items():
+            check(healed[idx][:2] == (i, h), f"heal: drive {i}'s part.1")
+            check(healed[idx][2] == fi, f"heal: drive {i}'s xl.meta")
+
+        # 5. Multipart: three parts, complete, GET.
+        def multipart():
+            mp = pools.multipart
+            uid = mp.new_multipart_upload("bucket", "mpu")
+            done, at = [], 0
+            for n, psize in enumerate(MPU_PARTS, 1):
+                p = mp.put_object_part("bucket", "mpu", uid, n,
+                                       data[at:at + psize])
+                done.append((n, p["etag"]))
+                at += psize
+            return mp.complete_multipart_upload("bucket", "mpu", uid, done)
+
+        minfo = step("multipart", multipart)
+        mlen = sum(MPU_PARTS)
+        got, ginfo = step("multipart_get",
+                          lambda: pools.get_object("bucket", "mpu"))
+        check(sha(got) == sha(data[:mlen]) and len(got) == mlen,
+              "multipart GET sha256 != the parts' concatenation")
+        check(minfo.etag.endswith("-3") and ginfo.etag == minfo.etag
+              and minfo.size == mlen, f"multipart etag {minfo.etag}, GET "
+              f"{ginfo.etag}, size {minfo.size}")
+        del got
+
+        # 6. Recovery: orphaned staging dirs on two drives, an hour old.
+        planted = []
+        for i in (2, 9):
+            stage = Path(eng.disks[i].root, TMP_DIR, f"orphan-{i}")
+            (stage / "dd").mkdir(parents=True)
+            (stage / "dd" / "part.1").write_bytes(b"x" * 4096)
+            old = time.time() - 3600
+            os.utime(stage, (old, old))
+            planted.append(stage)
+        reports = sweep_layer(pools, age_s=60)
+        check(len(reports) == 1 and reports[0]["found"] == 2
+              and reports[0]["cleaned"] == 2
+              and not any(p.exists() for p in planted),
+              f"recovery sweep: {reports}")
+
+        # 7. Shutdown: no thread of the engine left running (the listing's
+        #    write-behind persist joined first; quorum_* threads are the
+        #    process-wide pool of parallel/quorum.py).
+        pools.shutdown()
+        if eng.metacache.last_persist is not None:
+            eng.metacache.last_persist.join(timeout=30)
+        left = [t.name for t in threading.enumerate()
+                if t not in before and t.is_alive()
+                and not t.name.startswith("quorum_")]
+        check(not left, f"threads left after shutdown: {left}")
+
+        trace = traced_engine(trace_root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(trace_root, ignore_errors=True)
+    check(trace["put_sha_ok"] and trace["get_sha_ok"],
+          f"traced engine run: {trace}")
+    traced = {}
+    for key, win, wall in (("put", "engine.put", "put_wall_ms"),
+                           ("degraded_get", "engine.degraded_get",
+                            "get_wall_ms")):
+        w = dict(trace["windows"][win] or {})
+        top = w.pop("top", [])
+        traced[key] = {"wall_ms": trace[wall], **w,
+                       "idle_share": (1 - w["device_ms"] / trace[wall])
+                       if w else None}
+        log(f"[engine] traced {key}: largest device events {top}")
+    totals = {kern: sum(v[kern] for v in launches.values())
+              for kern in ("gf_apply", "hh256")}
+    phase_s = time.perf_counter() - t_phase
+    log(f"[engine] 16 drives, one set, 12+4, 10 MiB blocks, {size} B object "
+        f"through ErasureServerPools on the card: walls (ms) {walls}")
+    log(f"[engine] K1 / K2 launches by step: {launches}; total {totals}")
+    log(f"[engine] PUT part files == phase 17's by index; GET, ranged GET "
+        f"and degraded GET == the payload; heal healed drives "
+        f"{sorted(res.healed_disks)} (after_ok {res.after_ok}); multipart "
+        f"etag {minfo.etag}; recovery swept {reports[0]['cleaned']} "
+        f"orphaned staging dirs; no engine thread left after shutdown")
+    for key, t in traced.items():
+        log(f"[engine] traced {key} in its own process: {t['wall_ms']} ms "
+            f"wall, " + (f"device {t['device_ms']} ms (gf_apply "
+                         f"{t['gf_apply_ms']}, hh256 {t['hh256_ms']}, copies "
+                         f"{t['copies_ms']}), device idle share "
+                         f"{t['idle_share']}" if t["idle_share"] is not None
+                         else "device time not measured (no device event in "
+                         f"its window; the whole session "
+                         f"{trace['session_device_ms']} ms)"))
+    log(f"[engine] phase 18: {phase_s:.1f} s")
+    return {"launches": totals, "by_step": launches, "walls_ms": walls,
+            "traced": traced, "phase_s": phase_s}
 
 
 def setup():
@@ -1856,6 +2210,10 @@ def main() -> None:
 
     # 17. The storage layer on the card.
     storage = storage_phase(np, torch, payload)
+    part_sha = storage.pop("part_sha")
+
+    # 18. The erasure engine on the card.
+    engine = engine_phase(np, torch, dev, payload, want_sha, part_sha)
 
     kernels = [
         {"name": "gf_apply", "route": "cuda",
@@ -1874,7 +2232,8 @@ def main() -> None:
              "coalescer": coal["launches"]["gf_apply"],
              "auto": auto["launches"]["gf_apply"],
              "regen": regen["launches"],
-             "placement": place["launches"]["gf_apply"]}},
+             "placement": place["launches"]["gf_apply"],
+             "engine": engine["launches"]["gf_apply"]}},
         {"name": "hh256", "route": "cuda",
          "source": "minio_tpu_torch/csrc/hh256.cu",
          "replaces": "minio_tpu/ops/hh256_tpu.py:232",
@@ -1887,9 +2246,11 @@ def main() -> None:
          "lone_chain_ns_per_packet": lone_ms * 1e6 / (HL / 32),
          "library_note": "no PyTorch call computes HighwayHash",
          "storage": storage,
+         "engine": engine,
          "launches_by_path": {
              "auto": auto["launches"]["hh256"],
-             "storage": storage["launches"]}},
+             "storage": storage["launches"],
+             "engine": engine["launches"]["hh256"]}},
         {"name": "select_scan", "route": "cuda",
          "source": "minio_tpu_torch/csrc/select_scan.cu",
          "replaces": "minio_tpu/ops/select_kernels.py:163",
@@ -1915,5 +2276,7 @@ if __name__ == "__main__":
         select_trace_main()
     elif sys.argv[1:2] == ["--storage-trace"] and len(sys.argv) == 3:
         storage_trace_main(sys.argv[2])
+    elif sys.argv[1:2] == ["--engine-trace"] and len(sys.argv) == 3:
+        engine_trace_main(sys.argv[2])
     else:
         main()

@@ -45,6 +45,10 @@ class RegenErasure:
     # Where the kernel lane runs (resolved in __post_init__, as Erasure).
     device: torch.device | str | None = field(default=None, repr=False)
 
+    # Dispatch seam for the engine: Erasure instances answer False via
+    # getattr default, so every regen branch is one attribute probe.
+    is_regen = True
+
     def __post_init__(self):
         # geometry() validates k > 0, m > 0, n <= 255
         rs_regen.geometry(self.data_blocks, self.parity_blocks)
