@@ -36,7 +36,14 @@ through the port's entry points at deployment size:
   erasure index), GET, a ranged GET and the listing, a degraded GET with
   two drives lost and a rotted frame, heal and the MRF queue, a
   three-part multipart upload, the boot recovery sweep and shutdown, with
-  the K1 and K2 launches of each step.
+  the K1 and K2 launches of each step;
+- the S3 front door (phase 19): a port ``S3Server`` (the async front
+  door) over the same stack answers SigV4 requests over loopback HTTP --
+  MakeBucket, PUT, GET, a ranged GET, ListObjectsV2, HEAD, a degraded
+  GET, a three-part multipart upload, a REGEN PUT and GET, Select on the
+  256 MiB Parquet object, the metrics and admin endpoints, DeleteObject
+  -- every body byte-exact, K1, K2 and X2 launched by its requests, and
+  no thread of the server left after ``stop()``.
 
 Every phase asserts; any failure exits non-zero. Prints the card, the
 kernels' times beside their bounds, and as its last line
@@ -494,7 +501,8 @@ def select_path(np, torch, dev):
     """9. SelectObjectContent through run_select on a 256 MiB Parquet
     object, the card against the CPU lane; at 65,536 rows also against
     the row oracle. Returns (select_scan launches of the main path, the
-    object's decoded batch and query 2's plan, for the times)."""
+    object's decoded batch and query 2's plan, for the times, and the
+    sha256 of each query's body, for phase 19)."""
     import os
 
     from minio_tpu_torch.ops import hh256_gpu, rs_gpu
@@ -598,7 +606,8 @@ def select_path(np, torch, dev):
         f"the kernel flagged a row")
     batch = decoded[1][0]
     plan = comp.Plan(comp.lower(sql.parse(SELECT_QUERIES[1]).where, batch))
-    return launches, batch, plan
+    return launches, batch, plan, [hashlib.sha256(b).hexdigest()
+                                   for b in bodies]
 
 
 def traced_select() -> dict:
@@ -1881,6 +1890,238 @@ def engine_phase(np, torch, dev, payload, want_sha: str,
             "traced": traced, "phase_s": phase_s}
 
 
+# -- the S3 front door (phase 19) ----------------------------------------------
+
+FRONT_ACCESS, FRONT_SECRET = "chipadmin", "chipadmin-secret"
+
+
+def admin_json(client, route: str) -> dict:
+    r = client.request("GET", f"/minio-tpu/admin/v1/{route}")
+    check(r.status == 200, f"admin {route}: HTTP {r.status} {r.body[:300]!r}")
+    return json.loads(r.body)
+
+
+def front_door_phase(np, torch, dev, payload, want_sha: str, part_sha: dict,
+                     select_sha: list, engine: dict) -> dict:
+    """19. The S3 front door on the card: a port ``S3Server`` (the async
+    front door, the codec probe ladder off) over phase 18's stack (16
+    drives, one set, 12+4, 10 MiB blocks, pinned to the card), driven with
+    the port's SigV4 ``S3Client`` over loopback: MakeBucket, PUT of the
+    259 MiB object (each part.1 equal to phase 17's by erasure index), GET,
+    a ranged GET over blocks 6-7, ListObjectsV2 and HEAD, a degraded GET
+    (shards 0 and 5 lost, frame 3 of shard 7 rotted), a three-part
+    multipart upload and its GET, a REGEN PUT and its GET, Select on phase
+    9's 256 MiB Parquet object (bodies equal to phase 9's), the metrics and
+    admin endpoints (whose dispatch counters must equal the launches
+    counted), DeleteObject, ``stop()`` and a thread census. Returns the
+    walls and the K1 / K2 / X2 launches of each step."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+    from xml.sax.saxutils import escape
+
+    from minio_tpu_torch.s3.client import S3Client
+    from minio_tpu_torch.s3.server import S3Server
+    from minio_tpu_torch.s3select.message import decode_messages
+    from minio_tpu_torch.storage.metadata import REGEN_ALGORITHM
+
+    t_phase = time.perf_counter()
+    env_keys = ("MINIO_CODEC_PROBE_ON_BOOT", "MINIO_FRONT_DOOR")
+    env_before = {k: os.environ.get(k) for k in env_keys}
+    os.environ["MINIO_CODEC_PROBE_ON_BOOT"] = "off"
+    os.environ.pop("MINIO_FRONT_DOOR", None)
+    walls, launches = {}, {}
+
+    def step(name: str, fn, status: int):
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t0) * 1e3
+        launches[name] = read_launches()
+        check(r.status == status, f"front door {name}: HTTP {r.status}, "
+              f"want {status}: {r.body[:300]!r}")
+        return r
+
+    def sha(b: bytes) -> str:
+        return hashlib.sha256(b).hexdigest()
+
+    data = payload.tobytes()
+    size, bs = len(data), 10 * MIB
+    md5 = hashlib.md5(data).hexdigest()
+    root = tempfile.mkdtemp(prefix="chip_smoke_front_")
+    before = set(threading.enumerate())
+    srv = None
+    try:
+        pools, eng = engine_stack(root, dev)
+        S = eng.codec.shard_size()
+        srv = S3Server(pools, FRONT_ACCESS, FRONT_SECRET)
+        check(srv.layer.device == eng.device
+              and eng.device.type == torch.device(dev).type,
+              f"the server's layer runs on {srv.layer.device}")
+        port = srv.start()
+        check(type(srv._front_door).__name__ == "AsyncFrontDoor",
+              "the async front door is not the default")
+        c = S3Client("127.0.0.1", port, FRONT_ACCESS, FRONT_SECRET)
+        stats0 = admin_json(c, "info")["tpu"]
+
+        step("make_bucket", lambda: c.make_bucket("bucket"), 200)
+        # PUT: streamed into the block pipeline (>= the 8 MiB threshold).
+        r = step("put", lambda: c.put_object("bucket", "obj", data), 200)
+        check(r.headers["etag"] == f'"{md5}"', f"PUT etag {r.headers}")
+        parts = engine_parts(eng, "obj")
+        for idx, (i, h, _) in parts.items():
+            check(h == part_sha[idx], f"PUT over HTTP: drive {i}'s part.1 "
+                  f"(index {idx}) != phase 17's framed shard")
+        r = step("get", lambda: c.get_object("bucket", "obj"), 200)
+        check(sha(r.body) == want_sha, "GET over HTTP: sha256 != payload's")
+        off, ln = 7 * bs - 3 * MIB // 2, 3 * MIB
+        r = step("ranged_get", lambda: c.get_object(
+            "bucket", "obj", headers={"range": f"bytes={off}-{off + ln - 1}"}),
+            206)
+        check(r.body == data[off:off + ln], "ranged GET over blocks 6-7")
+        r = step("list_v2", lambda: c.list_objects_v2("bucket"), 200)
+        check(b"<Key>obj</Key>" in r.body and r.body.count(b"<Key>") == 1,
+              f"ListObjectsV2: {r.body[:300]!r}")
+        r = step("head", lambda: c.head_object("bucket", "obj"), 200)
+        check(int(r.headers["content-length"]) == size, f"HEAD {r.headers}")
+        if eng.metacache.last_persist is not None:
+            eng.metacache.last_persist.join(timeout=30)
+
+        # Degraded GET: the MRF worker held back, as in phase 18.
+        eng.mrf.start = lambda: None
+        engine_degrade(eng, parts, S)
+        r = step("degraded_get", lambda: c.get_object("bucket", "obj"), 200)
+        check(sha(r.body) == want_sha, "degraded GET over HTTP: sha256")
+        check(eng.mrf.depth() == 1, f"MRF depth {eng.mrf.depth()}")
+
+        # Multipart: 64 + 64 + 5 MiB + 3 B, each part streamed.
+        def multipart():
+            r = c.request("POST", "/bucket/mpu", query="uploads=")
+            check(r.status == 200, f"CreateMultipartUpload {r.status}")
+            uid = r.body.split(b"<UploadId>")[1].split(b"</UploadId>")[0]
+            done, at = [], 0
+            for n, psize in enumerate(MPU_PARTS, 1):
+                r = c.request("PUT", "/bucket/mpu",
+                              query=f"partNumber={n}&uploadId={uid.decode()}",
+                              body=data[at:at + psize])
+                check(r.status == 200, f"UploadPart {n}: {r.status}")
+                done.append(f"<Part><PartNumber>{n}</PartNumber><ETag>"
+                            f"{r.headers['etag']}</ETag></Part>")
+                at += psize
+            return c.request(
+                "POST", "/bucket/mpu", query=f"uploadId={uid.decode()}",
+                body=("<CompleteMultipartUpload>" + "".join(done)
+                      + "</CompleteMultipartUpload>").encode())
+
+        r = step("multipart", multipart, 200)
+        check(b'-3"</ETag>' in r.body,
+              f"CompleteMultipartUpload: {r.body[:300]!r}")
+        mlen = sum(MPU_PARTS)
+        r = step("multipart_get", lambda: c.get_object("bucket", "mpu"), 200)
+        check(len(r.body) == mlen and sha(r.body) == sha(data[:mlen]),
+              "multipart GET over HTTP != the parts' concatenation")
+
+        # REGEN: the storage class stamps pm-mbr-rbt on the object.
+        step("regen_put", lambda: c.put_object(
+            "bucket", "regen", data,
+            headers={"x-amz-storage-class": "REGEN"}), 200)
+        algo = eng.disks[0].read_version("bucket", "regen").erasure.algorithm
+        check(algo == REGEN_ALGORITHM, f"REGEN PUT wrote {algo}")
+        r = step("regen_get", lambda: c.get_object("bucket", "regen"), 200)
+        check(sha(r.body) == want_sha, "REGEN GET over HTTP: sha256")
+
+        # Select on phase 9's object: the bodies must be phase 9's.
+        table = select_object(np, SELECT_ROWS)
+        step("select_put", lambda: c.put_object("bucket", "table.parquet",
+                                                table), 200)
+        del table
+        for i, q in enumerate(SELECT_QUERIES):
+            xml = ("<SelectObjectContentRequest><Expression>" + escape(q)
+                   + "</Expression><ExpressionType>SQL</ExpressionType>"
+                   "<InputSerialization><Parquet/></InputSerialization>"
+                   "<OutputSerialization><JSON/></OutputSerialization>"
+                   "</SelectObjectContentRequest>").encode()
+            r = step(f"select_q{i + 1}", lambda xml=xml: c.request(
+                "POST", "/bucket/table.parquet",
+                query="select=&select-type=2", body=xml), 200)
+            msgs = decode_messages(r.body)
+            check(msgs and msgs[0]["headers"].get(":message-type")
+                  != "error", f"select q{i + 1} answered {msgs[:1]}")
+            check(sha(r.body) == select_sha[i],
+                  f"select q{i + 1} over HTTP: body != phase 9's")
+
+        # Metrics and admin: the dispatch counters of the kernel lane moved
+        # by exactly the launches counted (no traffic ran in between).
+        r = c.request("GET", "/minio-tpu/metrics")
+        check(r.status == 200 and b"minio_tpu_" in r.body,
+              f"metrics: HTTP {r.status}")
+        stats1 = admin_json(c, "info")["tpu"]
+        health = admin_json(c, "kernel-health")["backends"]
+        total = {kern: sum(v[kern] for v in launches.values())
+                 for kern in ("gf_apply", "hh256", "select_scan")}
+        counted = {
+            "gf_apply": stats1["rs"]["tpu_dispatches"]
+            - stats0["rs"]["tpu_dispatches"],
+            "hh256": stats1["bitrot"]["tpu_dispatches"]
+            - stats0["bitrot"]["tpu_dispatches"]}
+        check(counted["gf_apply"] == total["gf_apply"]
+              and counted["hh256"] == total["hh256"],
+              f"admin tpu_dispatches {counted} != launches {total}")
+        check(health["device"]["state"] == "up"
+              and not health["device"]["failures"],
+              f"admin kernel-health: {health['device']}")
+
+        step("delete", lambda: c.delete_object("bucket", "obj"), 204)
+        check(c.head_object("bucket", "obj").status == 404,
+              "HEAD after DeleteObject")
+        if eng.metacache.last_persist is not None:
+            eng.metacache.last_persist.join(timeout=30)
+        srv.stop()
+        srv = None
+        deadline = time.monotonic() + 10
+        while True:
+            left = [t.name for t in threading.enumerate()
+                    if t not in before and t.is_alive()
+                    and not t.name.startswith("quorum_")]
+            if not left or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+        check(not left, f"threads left after stop(): {left}")
+    finally:
+        if srv is not None:
+            srv.stop()
+        for k, v in env_before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+    for kern in ("gf_apply", "hh256", "select_scan"):
+        check(total[kern] > 0, f"the front door never launched {kern}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[front door] S3Server (async front door) over 16 drives, 12+4, "
+        f"10 MiB blocks on the card, SigV4 over loopback: walls (ms) {walls}")
+    log(f"[front door] K1 / K2 / X2 launches by step: {launches}; total "
+        f"{total}; admin tpu_dispatches moved by {counted}")
+    ew = engine["walls_ms"]
+    for name, eng_name in (("put", "put"), ("get", "get"),
+                           ("ranged_get", "ranged_get"),
+                           ("degraded_get", "degraded_get"),
+                           ("multipart", "multipart"),
+                           ("multipart_get", "multipart_get")):
+        log(f"[front door] {name}: {walls[name]} ms over HTTP, "
+            f"{ew[eng_name]} ms through the engine (phase 18), "
+            f"difference {walls[name] - ew[eng_name]} ms")
+    log(f"[front door] every body byte-exact (GET, ranges, degraded GET, "
+        f"multipart, REGEN, Select == phase 9); no thread of the server "
+        f"left after stop(); phase 19: {phase_s:.1f} s")
+    return {"launches": total, "by_step": launches, "walls_ms": walls,
+            "phase_s": phase_s}
+
+
 def setup():
     """(numpy, torch) once a card and the port beside this file are
     there; exits non-zero otherwise."""
@@ -2192,7 +2433,7 @@ def main() -> None:
     # 8.-10. The S3 Select slice: X2 against its plain version, the
     #        SelectObjectContent path on a 256 MiB Parquet object, times.
     x2_err = select_kernel_checks(np, torch, dev)
-    x2_launches, batch, plan = select_path(np, torch, dev)
+    x2_launches, batch, plan, select_sha = select_path(np, torch, dev)
     x2 = select_times(np, torch, dev, batch, plan, lib.ptxas_log)
 
     # 11.-16. The dispatch plane and the REGEN class.
@@ -2215,6 +2456,10 @@ def main() -> None:
     # 18. The erasure engine on the card.
     engine = engine_phase(np, torch, dev, payload, want_sha, part_sha)
 
+    # 19. The S3 front door on the card.
+    front = front_door_phase(np, torch, dev, payload, want_sha, part_sha,
+                             select_sha, engine)
+
     kernels = [
         {"name": "gf_apply", "route": "cuda",
          "source": "minio_tpu_torch/csrc/gf_apply.cu",
@@ -2233,7 +2478,8 @@ def main() -> None:
              "auto": auto["launches"]["gf_apply"],
              "regen": regen["launches"],
              "placement": place["launches"]["gf_apply"],
-             "engine": engine["launches"]["gf_apply"]}},
+             "engine": engine["launches"]["gf_apply"],
+             "front_door": front["launches"]["gf_apply"]}},
         {"name": "hh256", "route": "cuda",
          "source": "minio_tpu_torch/csrc/hh256.cu",
          "replaces": "minio_tpu/ops/hh256_tpu.py:232",
@@ -2250,7 +2496,8 @@ def main() -> None:
          "launches_by_path": {
              "auto": auto["launches"]["hh256"],
              "storage": storage["launches"],
-             "engine": engine["launches"]["hh256"]}},
+             "engine": engine["launches"]["hh256"],
+             "front_door": front["launches"]["hh256"]}},
         {"name": "select_scan", "route": "cuda",
          "source": "minio_tpu_torch/csrc/select_scan.cu",
          "replaces": "minio_tpu/ops/select_kernels.py:163",
@@ -2261,7 +2508,10 @@ def main() -> None:
          "ptxas": x2["ptxas"],
          "shape": x2["shape"], "plain_shape": "the same",
          "library_note": "no single PyTorch call computes a predicate "
-                         "program"},
+                         "program",
+         "front_door": front,
+         "launches_by_path": {
+             "front_door": front["launches"]["select_scan"]}},
     ]
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     log(smi)

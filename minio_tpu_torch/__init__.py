@@ -9,3 +9,5 @@ unless the caller passes ``device="cpu"``, which selects each kernel's
 plain PyTorch version. Without a card and without ``device="cpu"`` they
 raise ``RuntimeError``; nothing falls back to the CPU silently.
 """
+
+__version__ = "0.1.0"

@@ -4,7 +4,7 @@ already exists in another pool (ref cmd/erasure-server-pool.go:42 struct,
 :215 getServerPoolsAvailableSpace, :593 PutObject, :524 GetObjectNInfo).
 
 The port's own copy of ``minio_tpu/erasure/pools.py``, with no change in
-behaviour.
+behaviour but ``device``, where the pools' kernels run.
 """
 
 from __future__ import annotations
@@ -29,6 +29,11 @@ class ErasureServerPools:
     @property
     def m(self) -> int:
         return self.pools[0].m
+
+    @property
+    def device(self):
+        """Where the pools' kernels run (``ErasureSets.device``)."""
+        return self.pools[0].device
 
     def shutdown(self) -> None:
         """Stop every pool's background daemons (see

@@ -7,7 +7,8 @@ set its name hashes to; bucket operations fan out to all sets.
 
 The port's own copy of ``minio_tpu/erasure/sets.py``, with no change in
 behaviour but the device seam: ``backend`` and ``device`` (keyword-only)
-go to every set's engine (erasure/engine.py).
+go to every set's engine (erasure/engine.py), and ``device`` reads back
+where they run.
 """
 
 from __future__ import annotations
@@ -98,6 +99,13 @@ class ErasureSets:
     @property
     def m(self) -> int:
         return self.sets[0].m
+
+    @property
+    def device(self):
+        """Where the sets' kernels run: the engines' pinned device, or
+        ``"auto"`` for autotuned engines (their ``bitrot_device``). S3
+        Select scans an object of this layer there."""
+        return self.sets[0].bitrot_device
 
     supports_streaming_put = True
 

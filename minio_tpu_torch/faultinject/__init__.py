@@ -19,6 +19,7 @@ share ONE plan with ONE deterministic decision procedure:
         {"kind": "slow_wire",  "target": "10.0.0.2:9000",
          "latency_ms": 30},
         {"kind": "kernel", "target": "rs_encode"},
+        {"kind": "loop_block", "target": "s3-0", "latency_ms": 400},
     ]}
 
 Rule fields: ``kind`` (required), ``target`` (substring matched against
@@ -54,16 +55,20 @@ Hook points (each a one-attribute check when no plan is loaded):
     (latency + error), ``read_*``/write paths -> :meth:`filter_read`
     / :meth:`filter_write` (corrupt, torn_write), ``rename_data`` ->
     :meth:`crash_point`;
-  - the RPC transport, when it is ported -> :meth:`peer` (partition,
-    slow_wire);
+  - ``rpc/transport.py`` ``RPCClient.call`` -> :meth:`peer`
+    (partition, slow_wire);
   - ``ops/batching.py`` and the other kernel-lane dispatches ->
     :meth:`kernel` (kernel-dispatch failure: the CPU lane fails over to
-    the host lanes, a card's dispatch raises to its caller).
+    the host lanes, a card's dispatch raises to its caller);
+  - ``obs/loopmon.py`` heartbeat -> :meth:`loop_block` (deterministic
+    blocking callback on a named event loop; proves the stall
+    detect -> blame -> fire -> resolve chain).
+
+Configured via the admin API (``/minio-tpu/admin/v1/fault-inject``)
+or config-KV (``fault_inject enable=on plan=<compact JSON>``).
 
 The port's own copy of ``minio_tpu/faultinject/__init__.py``, with no
-change in behaviour, less the ``loop_block`` kind and hook: the
-event-loop monitor that consults it is not ported yet, so a plan naming
-``loop_block`` is refused rather than silently ignored.
+change in behaviour.
 """
 
 from __future__ import annotations
@@ -74,7 +79,7 @@ import threading
 import time
 
 KINDS = ("latency", "error", "corrupt", "torn_write", "partition",
-         "slow_wire", "kernel", "crash")
+         "slow_wire", "kernel", "crash", "loop_block")
 
 # kinds consulted at each hook
 _DISK_KINDS = ("latency", "error")
@@ -353,6 +358,21 @@ class FaultInjector:
             else:
                 part = True
         return lat, part
+
+    def loop_block(self, loop_name: str) -> float:
+        """Event-loop blocker: seconds the named loop's loopmon
+        heartbeat should schedule as a REAL blocking time.sleep
+        callback onto its own loop (obs/loopmon.py
+        ``_injected_loop_block``) — the deterministic stall that
+        proves the detect -> blame -> fire -> resolve chain.  Returns
+        0.0 with no plan loaded (single attribute read; the hook runs
+        at 10Hz per loop)."""
+        if not self.enabled:
+            return 0.0
+        total = 0.0
+        for r in self._collect(("loop_block",), loop_name):
+            total += r.latency_ms / 1e3
+        return total
 
     def kernel(self, name: str) -> None:
         """Kernel-dispatch failure: raises inside the kernel-lane

@@ -1,4 +1,7 @@
-"""Structured logging and the console ring (ref cmd/logger/); the audit
-webhook comes with the HTTP front end that feeds it."""
+"""Structured logging, console ring, audit webhook (ref cmd/logger/).
+
+The port's own copy of ``minio_tpu/logger/__init__.py``, with no change in
+behaviour.
+"""
 
 from .logger import ConsoleLogRing, LogEntry, Logger  # noqa: F401

@@ -25,9 +25,9 @@ brain-scan:
   (``record_queue_wait``) separately from the execute wall the dispatch
   histogram carries.
 
-The reference also feeds each dispatch to its timeline
-(``TIMELINE.note_kernel``), which pulls in the drive, loop, watchdog and
-usage monitors; that hook comes with the rest of ``obs/``.
+Each dispatch is also the worst-dispatch exemplar candidate of the
+current timeline window (``TIMELINE.note_kernel``, obs/timeline.py), as
+in the reference.
 """
 
 from __future__ import annotations
@@ -141,6 +141,9 @@ class KernelProfiler:
         # every real dispatch).
         from ..ops.autotune import AUTOTUNE
         AUTOTUNE.observe(kernel, backend, nbytes, wall_s)
+        # Worst-dispatch exemplar for the current timeline window.
+        from .timeline import TIMELINE
+        TIMELINE.note_kernel(kernel, backend, wall_s * 1e3)
 
     def record_queue_wait(self, kernel: str, wait_ms: float) -> None:
         """Coalescer window wait for one request — the queue half of

@@ -663,11 +663,19 @@ def test_injected_disk_error_is_the_ports_faulty_disk():
 
 
 def test_loop_block_is_refused_until_its_monitor_is_ported():
-    with pytest.raises(FaultPlanError, match="loop_block"):
-        FaultInjector().load_plan({"rules": [{"kind": "loop_block"}]})
-    RefInjector.validate({"rules": [{"kind": "loop_block"}]})
-    assert set(RefInjector.validate.__globals__["KINDS"]) - \
-        set(FaultInjector.validate.__globals__["KINDS"]) == {"loop_block"}
+    # obs/loopmon.py is ported and consults the hook, so the kind is
+    # accepted and both injectors know the same kinds.
+    plan = {"rules": [{"kind": "loop_block", "target": "s3-0",
+                       "latency_ms": 250}]}
+    port, ref = FaultInjector(), RefInjector()
+    port.load_plan(plan)
+    ref.load_plan(plan)
+    assert port.loop_block("s3-0") == ref.loop_block("s3-0") == 0.25
+    assert port.loop_block("rpc") == ref.loop_block("rpc") == 0.0
+    with pytest.raises(FaultPlanError, match="loop_stall"):
+        FaultInjector().load_plan({"rules": [{"kind": "loop_stall"}]})
+    assert set(RefInjector.validate.__globals__["KINDS"]) == \
+        set(FaultInjector.validate.__globals__["KINDS"])
 
 
 def test_kernel_fault_raises_injected_fault():
