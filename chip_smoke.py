@@ -43,7 +43,17 @@ through the port's entry points at deployment size:
   GET, a three-part multipart upload, a REGEN PUT and GET, Select on the
   256 MiB Parquet object, the metrics and admin endpoints, DeleteObject
   -- every body byte-exact, K1, K2 and X2 launched by its requests, and
-  no thread of the server left after ``stop()``.
+  no thread of the server left after ``stop()``;
+- boot (phase 20): ``python -m minio_tpu_torch server ROOT/d{1...16}`` as
+  a subprocess, driven over HTTP: PUT (part files equal phase 17's), GET,
+  a degraded GET, an admin heal, SIGTERM and a restart on the same
+  drives, with the node's admin K1 / K2 counters moving as predicted
+  step by step; the same command without a card must fail unserved;
+- a cluster (phase 21): four such nodes on the one card, four drives each,
+  one 12+4 set across them: PUT through node 0, GET through node 3, a
+  heal that verifies every drive on its own node, the cluster metrics
+  against the sum of the nodes', a killed node, a degraded GET, a restart
+  and heal, SIGTERM of all four.
 
 Every phase asserts; any failure exits non-zero. Prints the card, the
 kernels' times beside their bounds, and as its last line
@@ -2122,6 +2132,503 @@ def front_door_phase(np, torch, dev, payload, want_sha: str, part_sha: dict,
             "phase_s": phase_s}
 
 
+# -- boot and cluster (phases 20-21) -------------------------------------------
+
+NODE_ACCESS, NODE_SECRET = "nodeadmin", "nodeadmin-secret"
+
+# K1 / K2 launches on the card each step must move a node's admin counters
+# by (predicted in PERF.md §6 before the first chip run), and its K1 / K2
+# dispatch counters by the same. Phase 20: the one CLI node. Phase 21:
+# {node: (K1, K2)} for the nodes that move; every other live node must not
+# move.
+CLI_LAUNCHES = {
+    "make_bucket": (0, 0), "put": (26, 26), "get": (0, 26),
+    "degraded_get": (26, 26), "heal": (6, 380),
+    "restart_get": (0, 26)}
+CLUSTER_LAUNCHES = {
+    "make_bucket": {}, "put": {0: (26, 26)}, "get": {3: (0, 26)},
+    "heal": {i: (0, 8) for i in range(4)},
+    "degraded_get": {1: (26, 26)},
+    "heal_after_restart": {0: (6, 352), 1: (0, 16), 3: (0, 16)}}
+
+
+def node_env(extra: dict | None = None) -> dict:
+    """A node's environment: its root credentials, STANDARD-class objects
+    at EC:4 (MinIO's knob for the standard parity; a 16-drive set then
+    writes 12+4, as phases 17-19 do), no probe ladder, and no background
+    crawl, new-disk sweep or probation probe inside a run, so every
+    dispatch a step counts is the step's own; the card, whatever the
+    caller's environment names."""
+    import os
+    env = dict(os.environ, MINIO_TORCH_DEVICE="cuda",
+               MINIO_ACCESS_KEY=NODE_ACCESS,
+               MINIO_SECRET_KEY=NODE_SECRET,
+               MINIO_STORAGE_CLASS_STANDARD="EC:4",
+               MINIO_CODEC_PROBE_ON_BOOT="off",
+               MINIO_CRAWLER_INTERVAL="3600",
+               MINIO_HEAL_NEWDISK_INTERVAL="3600",
+               MINIO_HEAL_PROBATION_INTERVAL="3600")
+    env.update(extra or {})
+    return env
+
+
+def free_ports(n: int) -> list:
+    import socket
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+class Node:
+    """One ``python -m minio_tpu_torch server`` process on a fixed port (so
+    clients survive a restart), logging to a file: an unread pipe fills
+    and blocks the node mid-print."""
+
+    def __init__(self, args: list, port: int, log: str, cmd: list,
+                 env: dict):
+        self.args, self.port, self.log = args, port, log
+        self.cmd, self.env = cmd, env
+        self.proc = None
+        self._off = 0
+
+    def launch(self) -> None:
+        import os
+        try:
+            self._off = os.path.getsize(self.log)
+        except OSError:
+            self._off = 0
+        with open(self.log, "ab") as log:
+            self.proc = subprocess.Popen(
+                [*self.cmd, "server", *self.args, "--address",
+                 f"127.0.0.1:{self.port}"],
+                stdout=log, stderr=subprocess.STDOUT, env=self.env,
+                cwd=str(Path(__file__).resolve().parent))
+
+    def wait_ready(self, timeout: float = 180.0) -> float:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < timeout:
+            if b"listening on" in self.output():
+                return time.perf_counter() - t0
+            if self.proc.poll() is not None:
+                fail(f"node on port {self.port} died booting, rc "
+                     f"{self.proc.returncode}: {self.output()[-3000:]!r}")
+            time.sleep(0.1)
+        fail(f"node on port {self.port} not ready in {timeout} s: "
+             f"{self.output()[-3000:]!r}")
+
+    def output(self) -> bytes:
+        try:
+            with open(self.log, "rb") as f:
+                f.seek(self._off)
+                return f.read()
+        except FileNotFoundError:
+            return b""
+
+    def client(self):
+        from minio_tpu_torch.s3.client import S3Client
+        return S3Client("127.0.0.1", self.port, NODE_ACCESS, NODE_SECRET)
+
+    def admin(self):
+        from minio_tpu_torch.s3.admin_client import AdminClient
+        return AdminClient("127.0.0.1", self.port, NODE_ACCESS, NODE_SECRET)
+
+    def counters(self) -> dict:
+        """The node's K1 and K2 launches on the card since it started
+        (admin ``kernel-launches``, counted by each kernel's wrapper where
+        it launches), and its K1 (``tpu.rs``) and K2 (``tpu.bitrot``)
+        dispatches (admin ``info``)."""
+        c = self.client()
+        tpu = admin_json(c, "info")["tpu"]
+        return {**admin_json(c, "kernel-launches"),
+                "gf_apply_dispatches": tpu["rs"]["tpu_dispatches"],
+                "hh256_dispatches": tpu["bitrot"]["tpu_dispatches"]}
+
+    def alive(self) -> bool:
+        return self.proc is not None and self.proc.poll() is None
+
+    def signal(self, sig) -> None:
+        self.proc.send_signal(sig)
+
+    def wait_exit(self, timeout: float) -> float:
+        """Seconds to exit; fails unless the exit is 0 and clean."""
+        t0 = time.perf_counter()
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.stop()
+            fail(f"node on port {self.port} still running {timeout} s "
+                 f"after SIGTERM")
+        out = self.output()
+        check(rc == 0, f"node on port {self.port} exited {rc} after "
+              f"SIGTERM: {out[-3000:]!r}")
+        check(b"Traceback" not in out, f"node on port {self.port} logged "
+              f"a traceback: {out[-3000:]!r}")
+        return time.perf_counter() - t0
+
+    def stop(self) -> None:
+        import signal
+        if self.alive():
+            self.proc.send_signal(signal.SIGKILL)
+            self.proc.wait(timeout=30)
+
+
+def drive_parts(drives: list, name: str) -> dict:
+    """{erasure index: (drive dir, sha256 of its part.1, the part's path)}
+    of "bucket"/``name`` on the drives that hold it."""
+    from minio_tpu_torch.storage.xl import XLStorage
+    out = {}
+    for d in drives:
+        fi = XLStorage(d, device="cpu").read_version("bucket", name)
+        path = Path(d, "bucket", name, fi.data_dir, "part.1")
+        out[fi.erasure.index] = (d, hashlib.sha256(path.read_bytes())
+                                 .hexdigest(), path)
+    return out
+
+
+def check_launched(moved: dict, what: str) -> None:
+    """Every K1 / K2 dispatch a step moved a node's counters by was a
+    launch on the card (a CPU node's dispatches launch nothing)."""
+    for k in ("gf_apply", "hh256"):
+        check(moved[k] == moved[k + "_dispatches"],
+              f"{what}: {moved[k + '_dispatches']} {k} dispatches, "
+              f"{moved[k]} launches on the card")
+
+
+def check_parts(parts: dict, part_sha: dict, what: str) -> None:
+    check(sorted(parts) == sorted(part_sha),
+          f"{what}: erasure indices {sorted(parts)}")
+    for idx, (d, h, _) in parts.items():
+        check(h == part_sha[idx], f"{what}: {d}'s part.1 (index {idx}) != "
+              f"phase 17's framed shard")
+
+
+def cli_phase(payload, want_sha: str, part_sha: dict, cmd: list | None = None,
+              env: dict | None = None) -> dict:
+    """20. A node booted by the CLI on the card: ``python -m minio_tpu_torch
+    server ROOT/d{1...16}`` (one set, objects at 12+4, 10 MiB blocks),
+    driven with the
+    port's S3Client and AdminClient: MakeBucket, PUT of the 259 MiB object
+    (each part.1 equal to phase 17's by erasure index), GET, a degraded GET
+    after two drives lose their part.1 from outside, an admin heal back to
+    phase 17's part files; the node's admin K1 / K2 counters must move by
+    CLI_LAUNCHES step by step. Then SIGTERM (exit 0 within 30 s, no
+    traceback), a restart on the same drives (the format-load path) whose
+    GET is byte-exact, SIGTERM again, and the same command without a card
+    (``CUDA_VISIBLE_DEVICES=``), which must fail without serving."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    t_phase = time.perf_counter()
+    cmd = cmd or [sys.executable, "-m", "minio_tpu_torch"]
+    env = node_env(env)
+    data = payload.tobytes()
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    drives = [f"{root}/d{i}" for i in range(1, 17)]
+    (port,) = free_ports(1)
+    node = Node([f"{root}/d{{1...16}}"], port, f"{root}/node.log", cmd, env)
+    walls, launches = {}, {}
+
+    def step(name: str, fn):
+        before = node.counters()
+        t0 = time.perf_counter()
+        out = fn()
+        walls[name] = (time.perf_counter() - t0) * 1e3
+        after = node.counters()
+        launches[name] = {k: after[k] - before[k] for k in after}
+        return out
+
+    def ok(r, status: int, what: str):
+        check(r.status == status, f"CLI node {what}: HTTP {r.status}, want "
+              f"{status}: {r.body[:300]!r}")
+        return r
+
+    try:
+        node.launch()
+        walls["boot"] = node.wait_ready() * 1e3
+        check(b"1 set(s), 16 disks" in node.output(),
+              f"CLI node topology: {node.output()[-600:]!r}")
+        c = node.client()
+        step("make_bucket", lambda: ok(c.make_bucket("bucket"), 200,
+                                       "MakeBucket"))
+        step("put", lambda: ok(c.put_object("bucket", "obj", data), 200,
+                               "PUT"))
+        parts = drive_parts(drives, "obj")
+        check_parts(parts, part_sha, "CLI node PUT")
+        r = step("get", lambda: ok(c.get_object("bucket", "obj"), 200, "GET"))
+        check(hashlib.sha256(r.body).hexdigest() == want_sha,
+              "CLI node GET: sha256 != payload's")
+        for j in LOST_SHARDS:
+            os.unlink(parts[j + 1][2])
+        r = step("degraded_get", lambda: ok(c.get_object("bucket", "obj"),
+                                            200, "degraded GET"))
+        check(hashlib.sha256(r.body).hexdigest() == want_sha,
+              "CLI node degraded GET: sha256 != payload's")
+        items = step("heal", lambda: node.admin().heal("bucket"))
+        check(len(items) == 1 and len(items[0]["healedDisks"]) == 2,
+              f"CLI node heal: {items}")
+        check_parts(drive_parts(drives, "obj"), part_sha, "CLI node heal")
+
+        node.signal(signal.SIGTERM)
+        walls["sigterm_exit"] = node.wait_exit(30.0) * 1e3
+        node.launch()
+        walls["restart_boot"] = node.wait_ready() * 1e3
+        r = step("restart_get", lambda: ok(c.get_object("bucket", "obj"),
+                                           200, "GET after restart"))
+        check(hashlib.sha256(r.body).hexdigest() == want_sha,
+              "CLI node GET after restart: sha256 != payload's")
+        node.signal(signal.SIGTERM)
+        walls["restart_sigterm_exit"] = node.wait_exit(30.0) * 1e3
+
+        t0 = time.perf_counter()
+        bare_env = {k: v for k, v in env.items()
+                    if k != "MINIO_TORCH_DEVICE"}
+        bare = subprocess.run(
+            [*cmd, "server", f"{root}/d{{1...16}}", "--address",
+             f"127.0.0.1:{port}"], env=dict(bare_env, CUDA_VISIBLE_DEVICES=""),
+            capture_output=True, timeout=300,
+            cwd=str(Path(__file__).resolve().parent))
+        walls["no_card"] = (time.perf_counter() - t0) * 1e3
+        check(bare.returncode != 0 and b"listening on" not in bare.stdout,
+              f"the CLI without a card: rc {bare.returncode}, "
+              f"{(bare.stdout + bare.stderr)[-600:]!r}")
+    finally:
+        node.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    for name, want in CLI_LAUNCHES.items():
+        check_launched(launches[name], f"CLI node {name}")
+        got = (launches[name]["gf_apply"], launches[name]["hh256"])
+        check(got == want, f"CLI node {name}: K1 / K2 launches {got}, "
+              f"predicted {want}")
+    total = {k: sum(v[k] for v in launches.values())
+             for k in ("gf_apply", "hh256")}
+    phase_s = time.perf_counter() - t_phase
+    log(f"[cli] python -m minio_tpu_torch server d{{1...16}}: walls (ms) "
+        f"{walls}")
+    by_step = {name: (m["gf_apply"], m["hh256"])
+               for name, m in launches.items()}
+    log(f"[cli] K1 / K2 launches on the card by step (admin counters, "
+        f"each equal to the step's dispatches): {by_step}; "
+        f"total {total}; without a card: rc {bare.returncode}, "
+        f"{bare.stderr.strip().splitlines()[-1:]}")
+    log(f"[cli] PUT part files == phase 17's, GET and degraded GET "
+        f"byte-exact, heal back to phase 17's files, SIGTERM rc 0, restart "
+        f"GET byte-exact; phase 20: {phase_s:.1f} s")
+    return {"launches": total, "by_step": launches, "walls_ms": walls,
+            "phase_s": phase_s}
+
+
+def metric_series(body: bytes, name: str) -> dict:
+    """{label string: value} of one Prometheus family in a scrape."""
+    out = {}
+    for line in body.decode().splitlines():
+        if line.startswith(name + "{") or line.startswith(name + " "):
+            key, _, value = line.rpartition(" ")
+            out[key[len(name):]] = float(value)
+    return out
+
+
+def kernel_series(series: dict, device: str) -> dict:
+    """K1 (``rs_*``) and K2 (``hh256``) invocations of one ``device``
+    label (``tpu``: the card's lane; ``host``: a host lane)."""
+    lane = [(lbl, v) for lbl, v in series.items()
+            if f'device="{device}"' in lbl]
+    return {"gf_apply": sum(v for lbl, v in lane if 'kernel="rs_' in lbl),
+            "hh256": sum(v for lbl, v in lane if 'kernel="hh256"' in lbl)}
+
+
+def cluster_phase(payload, want_sha: str, part_sha: dict,
+                  cmd: list | None = None, env: dict | None = None) -> dict:
+    """21. Four CLI nodes of one cluster on the one card, four drives
+    each, all given the same 16 endpoints: one set of 16 at 12+4 across
+    the nodes. PUT of the 259 MiB object through node 0 (12 of the 16
+    shards cross the internode RPC; part files equal phase 17's by
+    index), GET through node 3, an admin heal through node 0 whose check
+    verifies every drive on the node that holds it (each node's K2 moves;
+    the cluster metrics scrape equals the sum of the four nodes', and each
+    node's ``rpc_metrics`` answers its own admin counters), SIGKILL of
+    node 2 (4 of 16 drives gone, 12 = k left) and a degraded GET through
+    node 1 that must run K1 there, node 2's part files deleted while it is
+    down, node 2 restarted and a heal through node 0 that rebuilds its 4
+    shards with K1 there and writes them over the storage RPC (its drives
+    then hold phase 17's part files), and SIGTERM of all four (each exit
+    0). Every node's card launches must move by CLUSTER_LAUNCHES, and its
+    dispatch counters by the same."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    from minio_tpu_torch.rpc.cluster import derive_cluster_key
+    from minio_tpu_torch.rpc.transport import RPCClient
+
+    t_phase = time.perf_counter()
+    cmd = cmd or [sys.executable, "-m", "minio_tpu_torch"]
+    env = node_env(env)
+    data = payload.tobytes()
+    root = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+    ports = free_ports(4)
+    drives = [f"{root}/n{i}/d{d}" for i in range(4) for d in range(1, 5)]
+    endpoints = [f"http://127.0.0.1:{ports[i // 4]}{p}"
+                 for i, p in enumerate(drives)]
+    nodes = [Node(endpoints, ports[i], f"{root}/node{i}.log", cmd, env)
+             for i in range(4)]
+    walls, launches = {}, {}
+    key = derive_cluster_key(NODE_ACCESS, NODE_SECRET)
+
+    def step(name: str, fn, live=range(4)):
+        before = {i: nodes[i].counters() for i in live}
+        t0 = time.perf_counter()
+        out = fn()
+        walls[name] = (time.perf_counter() - t0) * 1e3
+        after = {i: nodes[i].counters() for i in live}
+        launches[name] = {i: {k: after[i][k] - before[i][k]
+                              for k in after[i]} for i in live}
+        return out
+
+    def ok(r, status: int, what: str):
+        check(r.status == status, f"cluster {what}: HTTP {r.status}, want "
+              f"{status}: {r.body[:300]!r}")
+        return r
+
+    try:
+        t0 = time.perf_counter()
+        for n in nodes:
+            n.launch()
+        for n in nodes:
+            n.wait_ready()
+        walls["boot"] = (time.perf_counter() - t0) * 1e3
+        check(b"1 set(s), 16 disks" in nodes[0].output(),
+              f"cluster topology: {nodes[0].output()[-600:]!r}")
+        c = [n.client() for n in nodes]
+        step("make_bucket", lambda: ok(c[0].make_bucket("bucket"), 200,
+                                       "MakeBucket"))
+        step("put", lambda: ok(c[0].put_object("bucket", "obj", data), 200,
+                               "PUT via node 0"))
+        parts = drive_parts(drives, "obj")
+        check_parts(parts, part_sha, "cluster PUT")
+        r = step("get", lambda: ok(c[3].get_object("bucket", "obj"), 200,
+                                   "GET via node 3"))
+        check(hashlib.sha256(r.body).hexdigest() == want_sha,
+              "cluster GET via node 3: sha256 != payload's")
+        items = step("heal", lambda: nodes[0].admin().heal("bucket"))
+        check(len(items) == 1 and not items[0]["healedDisks"]
+              and items[0]["beforeOk"] == 16, f"cluster heal: {items}")
+
+        # The cluster scrape against the four nodes' own scrapes, and each
+        # node's kernel metrics and rpc_metrics against its admin counters
+        # (no traffic in between).
+        fam = "minio_tpu_v2_kernel_invocations_total"
+        cluster = ok(c[0].request("GET", "/minio-tpu/v2/metrics/cluster"),
+                     200, "cluster metrics")
+        merged = metric_series(cluster.body, fam)
+        summed: dict = {}
+        rpc_sum = {"gf_apply": 0, "hh256": 0}
+        for i, n in enumerate(nodes):
+            series = metric_series(ok(c[i].request(
+                "GET", "/minio-tpu/v2/metrics/node"), 200,
+                "node metrics").body, fam)
+            for lbl, v in series.items():
+                summed[lbl] = summed.get(lbl, 0.0) + v
+            peer = RPCClient("127.0.0.1", n.port, key)
+            try:
+                res, _ = peer.call("peer", "metrics", {})
+            finally:
+                peer.close()
+            got = {"gf_apply": res["rs"]["tpu_dispatches"],
+                   "hh256": res["bitrot"]["tpu_dispatches"]}
+            mine = n.counters()
+            mine = {k: mine[k + "_dispatches"] for k in got}
+            scraped = kernel_series(series, "tpu")
+            check(got == mine == scraped, f"node {i}: rpc_metrics {got}, "
+                  f"admin counters {mine}, {fam} {scraped} disagree")
+            check(kernel_series(series, "host") == {"gf_apply": 0,
+                                                    "hh256": 0},
+                  f"node {i}: K1 / K2 on a host lane: {series}")
+            for k in rpc_sum:
+                rpc_sum[k] += got[k]
+        check(merged == summed and merged, f"cluster {fam} {merged} != the "
+              f"sum of the nodes' {summed}")
+        check(metric_series(cluster.body, "minio_tpu_v2_cluster_nodes")
+              == {"": 4.0}, "cluster metrics: not 4 nodes")
+        check(kernel_series(merged, "tpu") == rpc_sum,
+              f"cluster {fam} {merged} != the nodes' dispatches {rpc_sum}")
+
+        # Node 2 dies with its 4 drives; 12 = k survive.
+        on2 = sorted(i for i, (d, _, _) in parts.items() if "/n2/" in d)
+        check(len(on2) == 4 and min(on2) <= 12,
+              f"node 2 holds erasure indices {on2}: no data shard")
+        nodes[2].signal(signal.SIGKILL)
+        nodes[2].proc.wait(timeout=30)
+        r = step("degraded_get", lambda: ok(c[1].get_object("bucket", "obj"),
+                                            200, "degraded GET via node 1"),
+                 live=(0, 1, 3))
+        check(hashlib.sha256(r.body).hexdigest() == want_sha,
+              "cluster degraded GET via node 1: sha256 != payload's")
+        # While node 2 is down its drives lose their part files, so the
+        # heal after its restart rebuilds 4 shards and writes them back
+        # over the storage RPC.
+        for j in on2:
+            os.unlink(parts[j][2])
+
+        t0 = time.perf_counter()
+        nodes[2].launch()
+        nodes[2].wait_ready()
+        walls["restart_boot"] = (time.perf_counter() - t0) * 1e3
+        # A peer that saw node 2 die keeps it offline for at most
+        # OFFLINE_RETRY x 1.5 s before it probes again.
+        time.sleep(3.5)
+        items = step("heal_after_restart",
+                     lambda: nodes[0].admin().heal("bucket"))
+        check(len(items) == 1 and items[0]["beforeOk"] == 12
+              and len(items[0]["healedDisks"]) == 4,
+              f"cluster heal after the restart: {items}")
+        check_parts({i: v for i, v in drive_parts(drives, "obj").items()
+                     if "/n2/" in v[0]}, {i: part_sha[i] for i in on2},
+                    "node 2's drives after the restart")
+
+        t0 = time.perf_counter()
+        for n in nodes:
+            n.signal(signal.SIGTERM)
+        exits = [n.wait_exit(30.0) for n in nodes]
+        walls["sigterm_exit"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        for n in nodes:
+            n.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    for name, want in CLUSTER_LAUNCHES.items():
+        for i, moved in launches[name].items():
+            check_launched(moved, f"cluster {name}: node {i}")
+            got = (moved["gf_apply"], moved["hh256"])
+            check(got == want.get(i, (0, 0)), f"cluster {name}: node {i} "
+                  f"K1 / K2 launches {got}, predicted "
+                  f"{want.get(i, (0, 0))}")
+    total = {k: sum(m[k] for v in launches.values() for m in v.values())
+             for k in ("gf_apply", "hh256")}
+    phase_s = time.perf_counter() - t_phase
+    log(f"[cluster] 4 nodes x 4 drives, one 12+4 set across them: walls "
+        f"(ms) {walls}; SIGTERM exits (s) {exits}")
+    by_step = {name: {i: (m["gf_apply"], m["hh256"]) for i, m in v.items()}
+               for name, v in launches.items()}
+    log(f"[cluster] K1 / K2 launches on the card by step and node (admin "
+        f"counters, each equal to the step's dispatches): {by_step}; "
+        f"total {total}")
+    log(f"[cluster] {fam} (cluster scrape == sum of the 4 nodes'): "
+        f"{merged}; rpc_metrics K1 / K2 of the 4 nodes: {rpc_sum}")
+    log(f"[cluster] PUT part files == phase 17's, GET via node 3 and "
+        f"degraded GET via node 1 (node 2 killed) byte-exact, node 2's "
+        f"deleted part files rebuilt to phase 17's by the heal after its "
+        f"restart; phase 21: "
+        f"{phase_s:.1f} s")
+    return {"launches": total, "by_step": launches, "walls_ms": walls,
+            "phase_s": phase_s}
+
+
 def setup():
     """(numpy, torch) once a card and the port beside this file are
     there; exits non-zero otherwise."""
@@ -2460,6 +2967,10 @@ def main() -> None:
     front = front_door_phase(np, torch, dev, payload, want_sha, part_sha,
                              select_sha, engine)
 
+    # 20. A node booted by the CLI; 21. a four-node cluster on the card.
+    cli = cli_phase(payload, want_sha, part_sha)
+    cluster = cluster_phase(payload, want_sha, part_sha)
+
     kernels = [
         {"name": "gf_apply", "route": "cuda",
          "source": "minio_tpu_torch/csrc/gf_apply.cu",
@@ -2479,7 +2990,9 @@ def main() -> None:
              "regen": regen["launches"],
              "placement": place["launches"]["gf_apply"],
              "engine": engine["launches"]["gf_apply"],
-             "front_door": front["launches"]["gf_apply"]}},
+             "front_door": front["launches"]["gf_apply"],
+             "cli": cli["launches"]["gf_apply"],
+             "cluster": cluster["launches"]["gf_apply"]}},
         {"name": "hh256", "route": "cuda",
          "source": "minio_tpu_torch/csrc/hh256.cu",
          "replaces": "minio_tpu/ops/hh256_tpu.py:232",
@@ -2493,11 +3006,15 @@ def main() -> None:
          "library_note": "no PyTorch call computes HighwayHash",
          "storage": storage,
          "engine": engine,
+         "cli": cli,
+         "cluster": cluster,
          "launches_by_path": {
              "auto": auto["launches"]["hh256"],
              "storage": storage["launches"],
              "engine": engine["launches"]["hh256"],
-             "front_door": front["launches"]["hh256"]}},
+             "front_door": front["launches"]["hh256"],
+             "cli": cli["launches"]["hh256"],
+             "cluster": cluster["launches"]["hh256"]}},
         {"name": "select_scan", "route": "cuda",
          "source": "minio_tpu_torch/csrc/select_scan.cu",
          "replaces": "minio_tpu/ops/select_kernels.py:163",

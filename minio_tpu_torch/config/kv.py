@@ -247,7 +247,8 @@ def _split_kv(line: str) -> list[str]:
 
 class ConfigSys:
     """Stored config + env overrides + history, persisted through the
-    quorum ConfigStore (ref globalConfigSys / lookupConfigs)."""
+    quorum ConfigStore (ref globalConfigSys / lookupConfigs). With
+    ``store=None`` it is a read-only view of the env and the defaults."""
 
     def __init__(self, store, env=os.environ):
         self.store = store
@@ -265,7 +266,7 @@ class ConfigSys:
         # still watches it for lock-order cycles.
         from ..utils.locktrace import transaction_lock
         self._write_mu = transaction_lock(threading.Lock())
-        doc = store.load(CONFIG_PATH)
+        doc = store.load(CONFIG_PATH) if store is not None else None
         self._config: dict = doc["config"] if doc else {}
 
     # -- reads ----------------------------------------------------------

@@ -70,11 +70,18 @@ def hash_size(algo: str) -> int:
 
 def _hh_rows(rows: np.ndarray, device) -> np.ndarray:
     """(B, L>0) uint8 rows -> (B, 32) HighwayHash digests in ONE
-    hash_chunks call on ``device``, counted in HH_STATS."""
+    hash_chunks call on ``device``, counted in HH_STATS and, as every
+    other kernel dispatch, in the kernel metrics (``KERNEL``)."""
+    from ..obs.kernel_stats import HH256, KERNEL, timed
     dev = _cuda.resolve_device(device)
-    digs = hh256_gpu.hash_chunks(_cuda.to_device(rows, dev), MAGIC_KEY)
+    with timed() as t:
+        digs = hh256_gpu.hash_chunks(_cuda.to_device(rows, dev),
+                                     MAGIC_KEY).cpu().numpy()
+    KERNEL.record(HH256, dev.type == "cuda", rows.size, t.s,
+                  blocks=rows.shape[0],
+                  backend=batching.attempt_backend(dev))
     batching.HH_STATS.add(True, rows.size)
-    return digs.cpu().numpy()
+    return digs
 
 
 def _as_array(data) -> np.ndarray:

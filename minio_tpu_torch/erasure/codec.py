@@ -74,6 +74,12 @@ def codec_device(backend: str, device=None) -> torch.device:
     return _cuda.resolve_device(dev)
 
 
+def device_backend(device) -> str:
+    """The pinned backend whose kernels run on ``device``: ``"gpu"`` on a
+    card, ``"cpu"`` on the CPU."""
+    return "gpu" if torch.device(device).type == "cuda" else "cpu"
+
+
 @dataclass
 class Erasure:
     data_blocks: int

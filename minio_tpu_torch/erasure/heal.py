@@ -575,7 +575,7 @@ class Healer:
                     r = self.heal_object_or_queue(bucket, obj.name)
                 except Exception as exc:  # noqa: BLE001 — sweep survives
                     import logging
-                    logging.getLogger("minio_tpu.heal").warning(
+                    logging.getLogger("minio_tpu_torch.heal").warning(
                         "heal sweep: %s/%s failed: %r", bucket,
                         obj.name, exc)
                     continue
@@ -626,7 +626,7 @@ class NewDiskMonitor:
         if load_format(disk) is not None:
             return False
         import logging
-        log = logging.getLogger("minio_tpu.heal")
+        log = logging.getLogger("minio_tpu_torch.heal")
         eng = self.healer.engine
         for j, peer in enumerate(eng.disks):
             if j == i:
@@ -672,7 +672,7 @@ class NewDiskMonitor:
                 self.tick()
             except Exception:
                 import logging
-                logging.getLogger("minio_tpu.heal").exception(
+                logging.getLogger("minio_tpu_torch.heal").exception(
                     "new-disk monitor tick failed")
 
     def tick(self) -> list[int]:
@@ -697,7 +697,7 @@ class NewDiskMonitor:
                 # retries the re-stamp. Log it — a silently un-stamped
                 # drive would fail the NEXT restart's format quorum.
                 import logging
-                logging.getLogger("minio_tpu.heal").warning(
+                logging.getLogger("minio_tpu_torch.heal").warning(
                     "format re-stamp failed for disk %d (%s)",
                     i, getattr(disk, "root", disk), exc_info=True)
             try:
@@ -778,7 +778,7 @@ class QuarantineProber:
                 self.tick()
             except Exception:
                 import logging
-                logging.getLogger("minio_tpu.heal").exception(
+                logging.getLogger("minio_tpu_torch.heal").exception(
                     "quarantine prober tick failed")
 
     def tick(self) -> list[int]:
@@ -833,7 +833,7 @@ class QuarantineProber:
         MRF entries its degraded writes queued may already be
         drained)."""
         import logging
-        logging.getLogger("minio_tpu.heal").info(
+        logging.getLogger("minio_tpu_torch.heal").info(
             "drive %d reinstated after probation; starting heal sweep",
             disk_index)
 
@@ -841,7 +841,7 @@ class QuarantineProber:
             try:
                 self.engine.healer.heal_disk(disk_index)
             except Exception:
-                logging.getLogger("minio_tpu.heal").exception(
+                logging.getLogger("minio_tpu_torch.heal").exception(
                     "post-reinstatement heal sweep failed")
 
         # mtpu-lint: disable=R1 -- reinstatement sweep outlives the probe tick; heal tags its own bg lane at the call sites

@@ -129,7 +129,7 @@ def regen_heal_groups(eng, bucket: str, object_name: str, fi, codec,
                     # rest of this part downgrades to the conventional
                     # any-k path (identical frames, seamless resume).
                     import logging
-                    logging.getLogger("minio_tpu.heal").warning(
+                    logging.getLogger("minio_tpu_torch.heal").warning(
                         "regen min-bandwidth repair of %s/%s part %d "
                         "fell back to k-chunk decode: %r", bucket,
                         object_name, part.number, exc)

@@ -336,8 +336,9 @@ class FaultInjector:
 
     def filter_write(self, endpoint: str, op: str, data: bytes) -> bytes:
         """Torn-write injection: the write persists only the first half
-        of the payload (a crash mid-write), without erroring."""
-        if not self.enabled or not data:
+        of the payload (a crash mid-write), without erroring. ``data``
+        may be bytes or a flat uint8 array (a pinned engine's frames)."""
+        if not self.enabled or len(data) == 0:
             return data
         fired = self._collect(("torn_write",), endpoint, op)
         if not fired:

@@ -10,7 +10,8 @@ Routes (same port as S3, non-S3 prefixes):
     /minio-tpu/metrics         Prometheus text exposition
 
 The port's own copy of ``minio_tpu/s3/admin.py``, with no change in
-behaviour.
+behaviour but one route of its own: ``kernel-launches``, K1's and K2's
+launches on the card.
 """
 
 from __future__ import annotations
@@ -170,6 +171,14 @@ class AdminHandlers:
         if notif is not None:
             out["peers"] = notif.server_info_all()
         return out
+
+    def h_kernel_launches(self, p, body):
+        """K1's and K2's launches on the card since the process started,
+        counted by each kernel's wrapper where it launches: ``info``'s
+        dispatch counters also count the torch-cpu lane."""
+        from ..ops import hh256_gpu, rs_gpu
+        return {"gf_apply": rs_gpu.gf_apply_cuda.launches,
+                "hh256": hh256_gpu.hash_chunks_cuda.launches}
 
     def h_datausage(self, p, body):
         # Serve the crawler's persisted cache when scanning runs

@@ -9,7 +9,9 @@ The port's own copy of ``minio_tpu/s3/server.py``, with no change in
 behaviour but the device seam: SelectObjectContent scans on the object
 layer's device (``layer.device``: the card for a card-built stack, the
 CPU for a CPU-built one), never on a device of its own choosing; and
-``stop`` releases the loop monitor, whose last release stops its threads.
+``stop`` releases the loop monitor, whose last release stops its threads;
+and a server started without a layer reads ``codec probe_on_boot`` from
+``MINIO_CODEC_PROBE_ON_BOOT`` (the reference always probes then).
 """
 
 from __future__ import annotations
@@ -4158,11 +4160,14 @@ class S3Server:
         # seeding the measured per-lane crossover; serving starts on
         # the static policy and flips to the plan when the ladder
         # lands (codec probe_on_boot=off skips it; the plan then
-        # builds from live dispatch samples only).
+        # builds from live dispatch samples only). A server that boots
+        # without a layer (a cluster node's, before the formats exist)
+        # has no stored config yet: the env and the defaults decide.
         try:
-            probe_on_boot = (self.config is None
-                             or self.config.get(
-                                 "codec", "probe_on_boot") == "on")
+            from ..config.kv import ConfigSys
+            config = (self.config if self.config is not None
+                      else ConfigSys(None))
+            probe_on_boot = config.get("codec", "probe_on_boot") == "on"
         except Exception:
             probe_on_boot = True
         if probe_on_boot:

@@ -175,8 +175,7 @@ for name in ("jax", "jaxlib", "triton", "minio_tpu"):
     sys.modules[name] = None
 import minio_tpu_torch
 names = sorted(m.name for m in pkgutil.walk_packages(
-    minio_tpu_torch.__path__, "minio_tpu_torch.")
-    if not m.name.endswith("__main__"))
+    minio_tpu_torch.__path__, "minio_tpu_torch."))
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None and (
@@ -207,6 +206,7 @@ def test_every_module_imports_without_jax_triton_or_the_reference():
     assert bad == "[]"
     assert len(SLICE) == 44
     assert {f"minio_tpu_torch.{m}" for m in SLICE} <= set(names.split())
+    assert "minio_tpu_torch.__main__" in names.split()
 
 
 # ---------------------------------------------------------------------------
