@@ -62,7 +62,14 @@ through the port's entry points at deployment size:
   (6 writers x 12 PUTs, 3 readers, 1 deleter over 4 keys) at 24 MiB
   bodies against an in-process server over 16 drives (12+4, 10 MiB
   blocks): within a deadline, no torn read, every key ending as an
-  acknowledged write left it, K1 / K2 launches equal to the dispatches.
+  acknowledged write left it, K1 / K2 launches equal to the dispatches;
+- the load generator (phase 24): a CLI node on the card (12+4, 10 MiB
+  blocks) driven by the port's ``minio_tpu_torch.tools.loadgen`` in the
+  two shapes of the reference's bench: ``run_load`` closed loop (16
+  workers, half PUTs of 10 MiB) and the async fleet (256 keep-alive
+  connections, 16 KiB objects) in a process of its own; every status 200,
+  every written key read back byte-equal, K1 / K2 launches equal to the
+  dispatches and to the prediction.
 
 Every phase asserts; any failure exits non-zero. Prints the card, the
 kernels' times beside their bounds, and as its last line
@@ -2939,6 +2946,209 @@ def mix_phase(np, torch, dev) -> dict:
             "writers_s": writers_s, "mix_s": mix_s, "phase_s": phase_s}
 
 
+# -- the load generator (phase 24) ---------------------------------------------
+
+# The two shapes the reference's bench drives (bench.py:794 and :1432):
+# run_load in this process, and the async fleet as the CLI in a process of
+# its own.
+LG_THREADED = {"concurrency": 16, "duration": 8.0, "put_fraction": 0.5,
+               "object_bytes": 10 * MIB, "key_space": 32, "seed": 0}
+LG_FLEET = {"connections": 256, "duration": 5.0, "put_fraction": 0.1,
+            "size": 16384, "key_space": 32}
+# K1 / K2 launches each request of a run makes on the card (predicted in
+# PERF.md §6 before the first chip run): a PUT of one block or less
+# encodes it with one K1 launch and frames all 16 shards with one K2
+# launch; a GET verifies its shards' frames with one K2 launch, and
+# rebuilds with one K1 launch when it reads around a drive the monitor
+# marked suspect.
+LG_PER_PUT, LG_PER_GET, LG_PER_REBUILD = (1, 1), (0, 1), 1
+
+
+def loadgen_launches(moved: dict, puts: int, gets: int, what: str) -> int:
+    """Check a run's K1 / K2 launches against its requests; returns the
+    GETs that read around a suspect drive."""
+    check_launched(moved, what)
+    rebuilt, extra = divmod(moved["gf_apply"] - LG_PER_PUT[0] * puts
+                            - LG_PER_GET[0] * gets, LG_PER_REBUILD)
+    check(moved["hh256"] == LG_PER_PUT[1] * puts + LG_PER_GET[1] * gets
+          and extra == 0 and 0 <= rebuilt <= gets,
+          f"{what}: K1 / K2 launches ({moved['gf_apply']}, "
+          f"{moved['hh256']}) for {puts} PUTs and {gets} GETs, predicted "
+          f"{LG_PER_PUT} a PUT, {LG_PER_GET} a GET, {LG_PER_REBUILD} K1 "
+          f"more a GET read around a suspect drive")
+    return rebuilt
+
+
+def lg_readback(client, bucket: str, body: bytes, what: str) -> int:
+    """GET every key of ``bucket`` (8 at a time): each must be ``body``."""
+    import re
+    from concurrent.futures import ThreadPoolExecutor
+    r = client.request("GET", f"/{bucket}", query="list-type=2")
+    check(r.status == 200, f"{what}: list {bucket}: HTTP {r.status}")
+    keys = [k.decode() for k in re.findall(rb"<Key>([^<]*)</Key>", r.body)]
+    check(keys and b"<IsTruncated>true" not in r.body,
+          f"{what}: {len(keys)} keys listed")
+
+    def one(key):
+        g = client.get_object(bucket, key)
+        return g.status == 200 and g.body == body
+
+    with ThreadPoolExecutor(8) as pool:
+        bad = [k for k, ok in zip(keys, pool.map(one, keys)) if not ok]
+    check(not bad, f"{what}: {len(bad)} of {len(keys)} keys do not read "
+          f"back as the loadgen's body: {bad[:5]}")
+    return len(keys)
+
+
+def pct(vals: list, q: float) -> float:
+    from minio_tpu_torch.tools.loadgen import _percentile
+    return _percentile(sorted(vals), q)
+
+
+def loadgen_phase(cmd: list | None = None, env: dict | None = None) -> dict:
+    """24. The port's load generator against a CLI node on the card
+    (``python -m minio_tpu_torch server ROOT/d{1...16}``, 12+4, 10 MiB
+    blocks). Run 1, ``run_load`` in this process (LG_THREADED), each PUT
+    and GET timed where the port's S3Client answers it; run 2, ``python -m
+    minio_tpu_torch.tools.loadgen`` in a process of its own (LG_FLEET).
+    Each run: every status 200 (no shed, no other error, no failed
+    connect), every key of its bucket read back equal to the loadgen's
+    seeded body, the node's K1 / K2 launches equal to its dispatches and
+    to the prediction (``loadgen_launches``)."""
+    import os
+    import random
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    from minio_tpu_torch.s3.client import S3Client
+    from minio_tpu_torch.tools.loadgen import run_load
+
+    t_phase = time.perf_counter()
+    here = str(Path(__file__).resolve().parent)
+    cmd = cmd or [sys.executable, "-m", "minio_tpu_torch"]
+    env = node_env(env)
+    root = tempfile.mkdtemp(prefix="chip_smoke_lg_")
+    (port,) = free_ports(1)
+    node = Node([f"{root}/d{{1...16}}"], port, f"{root}/node.log", cmd, env)
+    out = {}
+    try:
+        node.launch()
+        out["boot_s"] = node.wait_ready()
+        c = node.client()
+        for b in ("lg-threads", "lg-fleet"):
+            check(c.make_bucket(b).status == 200, f"loadgen MakeBucket {b}")
+
+        # Run 1: run_load, each request timed at the client.
+        timed = {"put": [], "get": []}
+        mu = threading.Lock()
+        real = {op: getattr(S3Client, f"{op}_object") for op in timed}
+
+        def timing(op):
+            def call(self, *a, **kw):
+                t0 = time.perf_counter()
+                r = real[op](self, *a, **kw)
+                with mu:
+                    timed[op].append(((time.perf_counter() - t0) * 1e3,
+                                      r.status))
+                return r
+            return call
+        before = node.counters()
+        t0 = time.perf_counter()
+        try:
+            for op in timed:
+                setattr(S3Client, f"{op}_object", timing(op))
+            rep = run_load("127.0.0.1", port, NODE_ACCESS, NODE_SECRET,
+                           "lg-threads", **LG_THREADED)
+        finally:
+            for op in timed:
+                setattr(S3Client, f"{op}_object", real[op])
+        wall = time.perf_counter() - t0
+        moved = {k: v - before[k] for k, v in node.counters().items()}
+        check(rep["status_counts"] == {"200": rep["requests"]}
+              and rep["errors_other"] == 0 and rep["shed_503"] == 0,
+              f"loadgen run_load: statuses {rep['status_counts']}")
+        puts, gets = len(timed["put"]), len(timed["get"])
+        check(puts + gets == rep["requests"] and all(
+            st == 200 for op in timed for _, st in timed[op]),
+            f"loadgen run_load: {puts} PUTs + {gets} GETs timed, "
+            f"{rep['requests']} requests reported")
+        rebuilt = loadgen_launches(moved, puts, gets, "loadgen run_load")
+        body = bytes(bytearray(random.Random(LG_THREADED["seed"]).randbytes(
+            LG_THREADED["object_bytes"])))
+        keys = lg_readback(c, "lg-threads", body, "loadgen run_load")
+        lat = {op: [ms for ms, _ in timed[op]] for op in timed}
+        out["threaded"] = {
+            "requests": rep["requests"], "ok": rep["ok"], "puts": puts,
+            "gets": gets, "rebuilt_gets": rebuilt, "keys": keys,
+            "wall_s": wall, "elapsed_s": rep["elapsed_s"],
+            "mib_s": (puts + gets) * LG_THREADED["object_bytes"] / MIB
+            / rep["elapsed_s"],
+            "put_p50_ms": pct(lat["put"], 50), "put_p99_ms": pct(lat["put"], 99),
+            "get_p50_ms": pct(lat["get"], 50), "get_p99_ms": pct(lat["get"], 99),
+            "launches": {k: moved[k] for k in ("gf_apply", "hh256")}}
+
+        # Run 2: the async fleet, the port's loadgen CLI in its own process.
+        args = [sys.executable, "-m", "minio_tpu_torch.tools.loadgen",
+                "--port", str(port), "--access-key", NODE_ACCESS,
+                "--secret-key", NODE_SECRET, "--bucket", "lg-fleet"]
+        for k, v in LG_FLEET.items():
+            args += [f"--{k.replace('_', '-')}", str(v)]
+        before = node.counters()
+        t0 = time.perf_counter()
+        proc = subprocess.run(args, capture_output=True, text=True,
+                              timeout=120, cwd=here)
+        wall = time.perf_counter() - t0
+        moved = {k: v - before[k] for k, v in node.counters().items()}
+        check(proc.returncode == 0, f"loadgen fleet: rc {proc.returncode}: "
+              f"{proc.stderr[-2000:]}")
+        rep = json.loads(proc.stdout)
+        check(rep["status_counts"] == {"200": rep["requests"]}
+              and rep["errors_other"] == 0 and rep["shed_503"] == 0
+              and rep["connect_failures"] == 0
+              and rep["established"] == LG_FLEET["connections"],
+              f"loadgen fleet: statuses {rep['status_counts']}, "
+              f"{rep['established']} connections, "
+              f"{rep['connect_failures']} connect failures, "
+              f"{rep['errors_other']} other errors")
+        # The preload PUTs the key space before the window opens.
+        puts = LG_FLEET["key_space"] + rep["put"]["total_ms"]["count"]
+        gets = rep["get"]["total_ms"]["count"]
+        rebuilt = loadgen_launches(moved, puts, gets, "loadgen fleet")
+        body = bytes(random.Random(0).randbytes(LG_FLEET["size"]))
+        keys = lg_readback(c, "lg-fleet", body, "loadgen fleet")
+        out["fleet"] = {
+            "connections": rep["connections"], "requests": rep["requests"],
+            "ok": rep["ok"], "puts": puts, "gets": gets,
+            "rebuilt_gets": rebuilt, "keys": keys, "wall_s": wall,
+            "elapsed_s": rep["elapsed_s"], "qps": rep["qps_achieved"],
+            "mib_s": (puts - LG_FLEET["key_space"] + gets)
+            * LG_FLEET["size"] / MIB / rep["elapsed_s"],
+            "put_p50_ms": rep["put"]["total_ms"]["p50"],
+            "put_p99_ms": rep["put"]["total_ms"]["p99"],
+            "get_p50_ms": rep["get"]["total_ms"]["p50"],
+            "get_p99_ms": rep["get"]["total_ms"]["p99"],
+            "connect_p99_ms": rep["connect_ms"]["p99"],
+            "launches": {k: moved[k] for k in ("gf_apply", "hh256")}}
+        node.signal(signal.SIGTERM)
+        out["sigterm_exit_s"] = node.wait_exit(30.0)
+    finally:
+        node.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = {k: out["threaded"]["launches"][k]
+                       + out["fleet"]["launches"][k]
+                       for k in ("gf_apply", "hh256")}
+    out["phase_s"] = time.perf_counter() - t_phase
+    for run in ("threaded", "fleet"):
+        log(f"[loadgen] {run}: {out[run]}")
+    log(f"[loadgen] every status 200, every key read back byte-equal, K1 / "
+        f"K2 launches == dispatches == {LG_PER_PUT} a PUT + {LG_PER_GET} a "
+        f"GET (+ {LG_PER_REBUILD} K1 a GET read around a suspect drive); "
+        f"boot {out['boot_s']:.1f} s; phase 24: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> None:
     np, torch = setup()
     from minio_tpu_torch.erasure import bitrot
@@ -3270,6 +3480,9 @@ def main() -> None:
     gateway = gateway_phase(np, select_sha, front)
     mix = mix_phase(np, torch, dev)
 
+    # 24. The port's load generator against a CLI node on the card.
+    lg = loadgen_phase()
+
     kernels = [
         {"name": "gf_apply", "route": "cuda",
          "source": "minio_tpu_torch/csrc/gf_apply.cu",
@@ -3292,7 +3505,8 @@ def main() -> None:
              "front_door": front["launches"]["gf_apply"],
              "cli": cli["launches"]["gf_apply"],
              "cluster": cluster["launches"]["gf_apply"],
-             "mix": mix["launches"]["gf_apply"]}},
+             "mix": mix["launches"]["gf_apply"],
+             "loadgen": lg["launches"]["gf_apply"]}},
         {"name": "hh256", "route": "cuda",
          "source": "minio_tpu_torch/csrc/hh256.cu",
          "replaces": "minio_tpu/ops/hh256_tpu.py:232",
@@ -3309,6 +3523,7 @@ def main() -> None:
          "cli": cli,
          "cluster": cluster,
          "mix": mix,
+         "loadgen": lg,
          "launches_by_path": {
              "auto": auto["launches"]["hh256"],
              "storage": storage["launches"],
@@ -3316,7 +3531,8 @@ def main() -> None:
              "front_door": front["launches"]["hh256"],
              "cli": cli["launches"]["hh256"],
              "cluster": cluster["launches"]["hh256"],
-             "mix": mix["launches"]["hh256"]}},
+             "mix": mix["launches"]["hh256"],
+             "loadgen": lg["launches"]["hh256"]}},
         {"name": "select_scan", "route": "cuda",
          "source": "minio_tpu_torch/csrc/select_scan.cu",
          "replaces": "minio_tpu/ops/select_kernels.py:163",

@@ -7,7 +7,8 @@ default, or ``cuda:N`` or ``cpu``) is read once at the top of ``main``
 and names where every kernel of the node runs: it is the process dispatch
 device (``batching.set_dispatch_device``) and the ``device`` of every
 drive, erasure set, FS backend and NAS gateway the CLI builds; engines run
-``backend="gpu"`` on a card and ``backend="cpu"`` on the CPU. There is no
+``backend="gpu"`` on a card and the reference's ``backend="auto"`` on the
+CPU (``node_backend``). There is no
 fallback: without the card it names, ``server`` and ``gateway nas`` print
 an error and exit 1 before binding a port.
 """
@@ -36,6 +37,15 @@ def _device_from_env() -> str:
         raise ValueError(f"{DEVICE_ENV}={want!r}: the node runs on "
                          "cuda, cuda:N or cpu")
     return want
+
+
+def node_backend(device: str) -> str:
+    """The backend of a node's erasure sets: pinned to the card on a card
+    (nothing gives way to the host there), and the reference's default
+    ``"auto"`` on the CPU, which plans over the native and ``torch-cpu``
+    lanes as the reference's CPU node plans over its own."""
+    import torch
+    return "gpu" if torch.device(device).type == "cuda" else "auto"
 
 
 def _claim_device(device: str) -> bool:
@@ -251,14 +261,17 @@ def _serve_gateway(args, device: str = "cuda") -> int:
 
 def build_object_layer(disk_args: list[str],
                        block_size: int | None = None, *,
-                       device="cuda"):
+                       device="cuda", backend: str | None = None):
     """Construct the full topology: per-arg pools -> format.json
     bootstrap -> erasure sets -> server pools (ref newObjectLayer,
     cmd/server-main.go:538). A single plain path selects the FS
     backend (ref NEndpoints==1 -> NewFSObjectLayer). Every drive and set
-    runs its kernels on ``device``."""
+    runs its kernels on ``device``, the sets under ``backend`` (by
+    default pinned to ``device``: ``device_backend``); under ``"auto"``
+    the drives hash as bitrot's "auto" does."""
     import threading
 
+    from .erasure import bitrot
     from .erasure.codec import device_backend
     from .erasure.pools import ErasureServerPools
     from .erasure.sets import ErasureSets
@@ -281,7 +294,9 @@ def build_object_layer(disk_args: list[str],
     else:
         pool_paths.append(list(disk_args))
 
-    kwargs = {"backend": device_backend(device), "device": device}
+    backend = backend or device_backend(device)
+    drive_device = bitrot.AUTO if backend == "auto" else device
+    kwargs = {"backend": backend, "device": device}
     if block_size:
         kwargs["block_size"] = block_size
 
@@ -292,7 +307,7 @@ def build_object_layer(disk_args: list[str],
             raise ValueError("each pool needs at least 2 disks")
         for p in paths:
             os.makedirs(p, exist_ok=True)
-        disks = [XLStorage(p, device=device) for p in paths]
+        disks = [XLStorage(p, device=drive_device) for p in paths]
         fmt, ordered, fresh = init_or_load_formats(disks)
         layout = [len(s) for s in fmt.sets]
         sets = ErasureSets(ordered, layout, fmt.deployment_id, **kwargs)
@@ -379,7 +394,8 @@ def _serve(args, device: str = "cuda") -> int:
             node = build_cluster_node(args.disks, my_host, port,
                                       access, secret, args.block_size,
                                       registry=boot_registry,
-                                      device=device)
+                                      device=device,
+                                      backend=node_backend(device))
             layer = _maybe_wrap_cache(node.layer)
             server.set_layer(layer)
             server.iam = _make_iam(node.layer, access, secret)
@@ -403,7 +419,8 @@ def _serve(args, device: str = "cuda") -> int:
         else:
             layer = _maybe_wrap_cache(
                 build_object_layer(args.disks, args.block_size,
-                                   device=device))
+                                   device=device,
+                                   backend=node_backend(device)))
             server = S3Server(layer, access, secret,
                               iam=_make_iam(layer, access, secret))
             port = server.start(host, port, cert_manager=_certs())

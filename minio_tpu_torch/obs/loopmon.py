@@ -244,6 +244,12 @@ class LoopMonitor:
         ``register`` or ``configure`` starts them again)."""
         with self._mu:
             self._holders = max(0, self._holders - 1)
+        self._wind_down()
+
+    def _wind_down(self) -> None:
+        """Stop the watcher and the profiler when no server holds the
+        plane and no loop is registered (``release``, ``unregister``)."""
+        with self._mu:
             if self._holders or self._loops:
                 return
             watcher, stop = self._watcher, self._watch_stop
@@ -309,10 +315,13 @@ class LoopMonitor:
                     del self._loops[name]
 
     def unregister(self, name: str, wait_s: float = 0.5) -> None:
+        """Disarm ``name``'s heartbeat; the last loop out with no server
+        holding the plane winds the watcher and the profiler down."""
         with self._mu:
             st = self._loops.pop(name, None)
         if st is not None:
             self._cancel_heartbeat(st, wait_s)
+            self._wind_down()
 
     @staticmethod
     def _cancel_heartbeat(st: _LoopState, wait_s: float) -> None:

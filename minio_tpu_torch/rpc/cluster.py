@@ -23,6 +23,7 @@ import time
 import urllib.parse
 from dataclasses import dataclass
 
+from ..erasure import bitrot
 from ..erasure.codec import device_backend
 from ..erasure.pools import ErasureServerPools
 from ..erasure.sets import ErasureSets
@@ -115,11 +116,14 @@ def build_cluster_node(disk_args: list[str], my_host: str, my_port: int,
                        block_size: int | None = None,
                        format_timeout: float = 30.0,
                        registry: RPCRegistry | None = None, *,
-                       device="cuda") -> ClusterNode:
+                       device="cuda",
+                       backend: str | None = None) -> ClusterNode:
     """Pass `registry` (already wired into a RUNNING HTTP server) so
     peers can reach this node's storage RPC while everyone waits for
     formats — local disks and services register before the format loop.
-    Local drives and every erasure set run their kernels on `device`."""
+    Local drives and every erasure set run their kernels on `device`, the
+    sets under `backend` (by default pinned to `device`); under "auto" the
+    local drives hash as bitrot's "auto" does."""
     cluster_key = derive_cluster_key(access_key, secret_key)
 
     # One pool per ellipses arg; plain args combine into a single pool
@@ -136,6 +140,9 @@ def build_cluster_node(disk_args: list[str], my_host: str, my_port: int,
     if plain:
         pool_endpoints.append(plain)
 
+    backend = backend or device_backend(device)
+    drive_device = bitrot.AUTO if backend == "auto" else device
+
     # Peer clients, one per distinct remote node.
     peers: dict[str, RPCClient] = {}
     local_disks: dict[str, XLStorage] = {}
@@ -151,7 +158,7 @@ def build_cluster_node(disk_args: list[str], my_host: str, my_port: int,
         if ep.is_local(my_hosts, my_port):
             import os
             os.makedirs(ep.path, exist_ok=True)
-            disk = XLStorage(ep.path, device=device)
+            disk = XLStorage(ep.path, device=drive_device)
             local_disks[ep.path] = disk
             return disk
         key = ep.node_key()
@@ -205,7 +212,7 @@ def build_cluster_node(disk_args: list[str], my_host: str, my_port: int,
     if distributed:
         notification.verify_bootstrap(topo)
 
-    kwargs = {"backend": device_backend(device), "device": device}
+    kwargs = {"backend": backend, "device": device}
     if block_size:
         kwargs["block_size"] = block_size
 

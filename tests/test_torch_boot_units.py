@@ -57,9 +57,19 @@ DAY = 24 * 3600.0
 
 @pytest.fixture(scope="module", autouse=True)
 def _no_probe_ladder():
-    with pytest.MonkeyPatch.context() as mp:
+    with pytest.MonkeyPatch.context() as mp, REMAP.life:
         mp.setenv("MINIO_CODEC_PROBE_ON_BOOT", "off")
         yield
+
+
+@pytest.fixture(autouse=True)
+def _module_life(request):
+    REMAP.life.enter(request.node.name)
+
+
+@pytest.mark.parametrize("tag", ["lifecycle", "federation", "admin"])
+def test_no_thread_outlives_its_module(tag):
+    assert REMAP.life.census.get(tag, []) == []
 
 
 def test_every_reference_case_was_collected():

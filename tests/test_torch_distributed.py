@@ -27,7 +27,7 @@ import pytest
 import test_distributed as _dist
 import test_rpc_fabric as _fabric
 import test_topology as _topo
-from test_torch_remap import PortRemap
+from test_torch_remap import PortRemap, stop_rpc_loop
 
 REMAP = PortRemap()
 _DIST = REMAP.collect(_dist, "dist", globals())
@@ -35,25 +35,6 @@ _FABRIC = REMAP.collect(_fabric, "fabric", globals())
 _TOPO = REMAP.namespace(_topo)
 test_topo__cli_builds_pools = _TOPO["test_cli_builds_pools"]
 test_topo__foreign_disk_refused = _TOPO["test_foreign_disk_refused"]
-
-
-def _stop_rpc_loop() -> None:
-    """Stop the port's process-wide RPC loop (started by the first
-    internode call), join its thread and take it off the loop monitor;
-    the next call starts a fresh loop."""
-    from minio_tpu_torch.obs.loopmon import LOOPMON
-    from minio_tpu_torch.rpc.aio import RPC_LOOP
-    with RPC_LOOP._mu:
-        loop, thread = RPC_LOOP._loop, RPC_LOOP._thread
-        RPC_LOOP._loop = RPC_LOOP._thread = None
-    if loop is None:
-        return
-    LOOPMON.unregister("rpc", wait_s=0.5)
-    if not loop.is_closed():
-        loop.call_soon_threadsafe(loop.stop)
-    thread.join(5.0)
-    if not thread.is_alive():
-        loop.close()
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -66,7 +47,7 @@ def _no_probe_ladder():
         try:
             yield
         finally:
-            _stop_rpc_loop()
+            stop_rpc_loop()
 
 
 @pytest.fixture(scope="module")
@@ -262,5 +243,5 @@ def test_rpc_loop_stops_and_starts_again(echo_server):
             cl.close()
         thread = RPC_LOOP._thread
         assert thread is not None and "rpc" in LOOPMON._loops
-        _stop_rpc_loop()
+        stop_rpc_loop()
         assert not thread.is_alive() and "rpc" not in LOOPMON._loops

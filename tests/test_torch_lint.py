@@ -4,7 +4,8 @@
 of ``tools/mtpu_lint``. Here the same rules, the same suppression syntax
 and the same (empty) baseline run over ``minio_tpu_torch/``, each module
 seen at the reference's relative path (``minio_tpu_torch/s3/server.py``
-as ``minio_tpu/s3/server.py``), so the path-scoped rules (async blocking
+as ``minio_tpu/s3/server.py``, ``minio_tpu_torch/tools/loadgen.py`` as
+``tools/loadgen.py``), so the path-scoped rules (async blocking
 in ``s3/`` and ``rpc/``, commits in ``storage/``, dispatch policy in
 ``ops/`` and ``erasure/codec.py``, blocking under locks in the hot paths,
 the metric-call rules of ``obs/``, ...) hold the port as they hold the
@@ -32,11 +33,14 @@ PORT, REF = "minio_tpu_torch/", "minio_tpu/"
 
 
 class _PortCtx(core.ModuleCtx):
-    """A port module at the reference's relative path."""
+    """A port module at the reference's relative path; the port's
+    ``tools/`` at the JAX system's ``tools/``."""
 
     def __init__(self, path: str, source: str):
         super().__init__(path, source)
-        if self.relpath.startswith(PORT):
+        if self.relpath.startswith(PORT + "tools/"):
+            self.relpath = self.relpath[len(PORT):]
+        elif self.relpath.startswith(PORT):
             self.relpath = REF + self.relpath[len(PORT):]
 
 
@@ -72,3 +76,13 @@ def test_path_scoped_rules_apply_to_the_port(relpath, rule):
     assert ctx.relpath == relpath
     (r,) = [r for r in all_rules() if r.id == rule]
     assert r.applies(ctx)
+
+
+def test_port_tools_are_linted_as_the_reference_tools():
+    """The port's load generator is seen at ``tools/loadgen.py``, where R1
+    (thread hops carry the request context) does not apply, as for the
+    reference's."""
+    ctx = _PortCtx(str(core.REPO) + "/" + PORT + "tools/loadgen.py", "")
+    assert ctx.relpath == "tools/loadgen.py"
+    (r1,) = [r for r in all_rules() if r.id == "R1"]
+    assert not r1.applies(ctx)

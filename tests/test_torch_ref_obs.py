@@ -8,6 +8,8 @@ hash on the native lane as the reference's do.
 ``SUITES`` gives, for each module, the bodies left out, each by the id of
 the divergence of ROADMAP §C that covers it (``DIVERGENCES``), and the
 bodies marked ``slow`` (out of tier-1), each with why.
+Each module's fixtures live while its cases run, and no background thread
+or monitored loop it started outlives them (``ModuleLife``).
 """
 
 from __future__ import annotations
@@ -41,20 +43,11 @@ SUITES = {
         "test_async_loadgen_closed_loop":
             "unsteady in the reference (ROADMAP, Reference baseline)",
     }),
+    # The other cases drive a three-node cluster of the port's CLI
+    # (``python -m minio_tpu`` starts ``minio_tpu_torch`` here).
     "fault_harness": (_fault_harness, {}, {
         "test_hedged_read_bounds_straggler_tail":
             "unsteady in the reference (ROADMAP, Reference baseline)",
-        # The cases below drive a three-node cluster of the port's CLI
-        # (``python -m minio_tpu`` starts ``minio_tpu_torch`` here).
-        "test_sigkill_mid_write_survives": "69 s here (7.0 s reference)",
-        "test_wipe_restart_autoheal_converges":
-            "12.9 s here (8.1 s reference)",
-        "test_shard_corruption_reconstructs_and_heals":
-            "17.5 s here (reference under 1 s)",
-        "test_full_node_outage_degraded_io_then_rejoin":
-            "13.7 s here (6.8 s reference)",
-        "test_hot_single_drive_swap_heals_without_restart":
-            "over 100 s here (6.6 s reference)",
     }),
 }
 for _tag, (_mod, _skip, _slow) in SUITES.items():
@@ -64,8 +57,13 @@ for _tag, (_mod, _skip, _slow) in SUITES.items():
 
 @pytest.fixture(scope="module", autouse=True)
 def _port_plane():
-    with cpu_plane(1):
+    with cpu_plane(1), REMAP.life:
         yield
+
+
+@pytest.fixture(autouse=True)
+def _module_life(request):
+    REMAP.life.enter(request.node.name)
 
 
 @pytest.mark.parametrize("tag", list(SUITES))
@@ -75,3 +73,8 @@ def test_every_reference_case_was_collected(tag):
     assert want and set(skip) | set(slow) <= set(want)
     assert set(skip.values()) <= set(DIVERGENCES)
     assert len(collected(globals(), tag)) == len(want) - len(skip)
+
+
+@pytest.mark.parametrize("tag", list(SUITES))
+def test_no_thread_outlives_its_module(tag):
+    assert REMAP.life.census.get(tag, []) == []

@@ -8,6 +8,8 @@ hash on the native lane as the reference's do.
 ``SUITES`` gives, for each module, the bodies left out, each by the id of
 the divergence of ROADMAP §C that covers it (``DIVERGENCES``), and the
 bodies marked ``slow`` (out of tier-1), each with why.
+Each module's fixtures live while its cases run, and no background thread
+or monitored loop it started outlives them (``ModuleLife``).
 """
 
 from __future__ import annotations
@@ -45,8 +47,13 @@ for _tag, (_mod, _skip, _slow) in SUITES.items():
 
 @pytest.fixture(scope="module", autouse=True)
 def _port_plane():
-    with cpu_plane(1):
+    with cpu_plane(1), REMAP.life:
         yield
+
+
+@pytest.fixture(autouse=True)
+def _module_life(request):
+    REMAP.life.enter(request.node.name)
 
 
 @pytest.mark.parametrize("tag", list(SUITES))
@@ -56,3 +63,8 @@ def test_every_reference_case_was_collected(tag):
     assert want and set(skip) | set(slow) <= set(want)
     assert set(skip.values()) <= set(DIVERGENCES)
     assert len(collected(globals(), tag)) == len(want) - len(skip)
+
+
+@pytest.mark.parametrize("tag", list(SUITES))
+def test_no_thread_outlives_its_module(tag):
+    assert REMAP.life.census.get(tag, []) == []

@@ -6,7 +6,8 @@ the files themselves are not edited) so that every name they reach from
 ``minio_tpu`` resolves to the port's counterpart at the same relative
 path: the module's globals, the helpers and classes it defines, and the
 imports its bodies make at run time (``from minio_tpu.x import y`` inside a
-test imports ``minio_tpu_torch.x``). Nothing else of a body changes.
+test imports ``minio_tpu_torch.x``, ``from tools.loadgen import run_load``
+the port's load generator). Nothing else of a body changes.
 
 The port's entry points run on the card unless the caller asks for the
 CPU; ``CPU_DEFAULTS`` gives the few that a reference body calls without a
@@ -29,6 +30,8 @@ import inspect
 import os
 import subprocess
 import sys
+import threading
+import time
 import types
 
 import pytest
@@ -43,6 +46,10 @@ ALIASES = {
     "ops.rs_pallas": "ops.rs_gpu",
     "ops.hh256_tpu": "ops.hh256_gpu",
 }
+
+# Modules of the JAX system outside the package that the port carries too:
+# reference name -> port name.
+TOOLS = {"tools.loadgen": f"{PORT}.tools.loadgen"}
 
 # Port callables whose default device is the card, given the CPU here:
 # (module, name) -> keyword defaults.
@@ -109,6 +116,146 @@ def cpu_plane(n_devices: int = 1):
             KERNPROF.reset()
             FAULTS.clear()
             MESH_AFFINITY.reset()
+
+
+def stop_rpc_loop() -> None:
+    """Stop the port's process-wide RPC loop (started by the first
+    internode call), join its thread and take it off the loop monitor
+    (whose watcher and profiler then stop if no server holds it); the next
+    call starts a fresh loop."""
+    from minio_tpu_torch.obs.loopmon import LOOPMON
+    from minio_tpu_torch.rpc.aio import RPC_LOOP
+    with RPC_LOOP._mu:
+        loop, thread = RPC_LOOP._loop, RPC_LOOP._thread
+        RPC_LOOP._loop = RPC_LOOP._thread = None
+    if loop is None:
+        return
+    LOOPMON.unregister("rpc", wait_s=0.5)
+    if not loop.is_closed():
+        loop.call_soon_threadsafe(loop.stop)
+    thread.join(5.0)
+    if not thread.is_alive():
+        loop.close()
+
+
+# The port's background threads that must end with the module that started
+# them (thread names; the reference's threads have the same ones).
+CENSUS_THREADS = ("timeline-sampler", "loopmon-watcher", "loopmon-profiler",
+                  "alert-webhook", "mtpu-rpc-loop", "kernprof-probe")
+
+
+class ModuleLife:
+    """The life of each remapped reference module inside a group file.
+
+    pytest keeps a module-scoped fixture up until the file that holds it
+    ends, and a group file holds several reference modules: their servers
+    would all stay up, each with its timeline sampler and its loops under
+    the loop monitor, while the later modules' bodies run. So ``collect``
+    gives each module-scoped fixture of a reference module the life of
+    that module's cases (``fixture``), as in the reference's own run.
+
+    ``enter(name)`` runs before every case of the file (an autouse
+    fixture). At a case of another module it ends the previous one
+    (``end``): its fixtures close in reverse order, the RPC loop is stopped
+    if the module started it, and the webhook workers its bodies left are
+    closed; then ``census[tag]`` lists what outlived it: a thread of
+    ``CENSUS_THREADS`` the module started, a running timeline sampler, a
+    loop the module registered with the loop monitor. A module starts with
+    the loop monitor's stall ring empty, so no stall of another module's
+    loops reaches its watchdog rules.
+    """
+
+    WAIT_S = 5.0
+
+    def __init__(self):
+        self.tags: set[str] = set()
+        self.census: dict[str, list[str]] = {}
+        self.tag: str | None = None
+        self._values: dict[str, object] = {}
+        self._open: list[tuple[str, types.GeneratorType]] = []
+        self._threads: set = set()
+        self._loops: set = set()
+        self._rpc_thread = None
+
+    def enter(self, name: str) -> None:
+        head = name[5:].split("__", 1)[0] if "__" in name else None
+        tag = head if head in self.tags else None
+        if tag == self.tag:
+            return
+        self.end()
+        if tag is None:
+            return
+        from minio_tpu_torch.obs.loopmon import LOOPMON
+        from minio_tpu_torch.rpc.aio import RPC_LOOP
+        self.tag = tag
+        self._threads = {t for t in threading.enumerate()
+                         if t.name.startswith(CENSUS_THREADS)}
+        with LOOPMON._mu:
+            self._loops = set(LOOPMON._loops)
+            LOOPMON._stall_ring.clear()
+        self._rpc_thread = RPC_LOOP._thread
+
+    def fixture(self, tag: str, name: str, make):
+        """The value of fixture ``name`` of module ``tag``, made by
+        ``make()`` (a generator or a value) at its first use and cached
+        until the module ends."""
+        if self.tag != tag:
+            self.enter(f"test_{tag}__")
+        if name not in self._values:
+            made = make()
+            if inspect.isgenerator(made):
+                self._open.append((name, made))
+                made = next(made)
+            self._values[name] = made
+        return self._values[name]
+
+    def end(self) -> None:
+        if self.tag is None:
+            return
+        from minio_tpu_torch.obs.loopmon import LOOPMON
+        from minio_tpu_torch.obs.timeline import TIMELINE
+        from minio_tpu_torch.obs.watchdog import AlertWebhook
+        from minio_tpu_torch.rpc.aio import RPC_LOOP
+        problems = []
+        while self._open:
+            name, gen = self._open.pop()
+            try:
+                next(gen)
+            except StopIteration:
+                pass
+            except Exception as e:  # noqa: BLE001 - listed in the census
+                problems.append(f"fixture {name} failed closing: {e!r}")
+            else:
+                problems.append(f"fixture {name} yielded twice")
+        self._values.clear()
+        if RPC_LOOP._thread not in (None, self._rpc_thread):
+            stop_rpc_loop()
+        for t in threading.enumerate():
+            owner = getattr(getattr(t, "_target", None), "__self__", None)
+            if t not in self._threads and isinstance(owner, AlertWebhook):
+                owner.close()
+        deadline = time.monotonic() + self.WAIT_S
+        while True:
+            left = [t.name for t in threading.enumerate()
+                    if t.name.startswith(CENSUS_THREADS)
+                    and t not in self._threads]
+            if not left or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+        problems += [f"thread {n} still alive" for n in left]
+        if TIMELINE.active:
+            problems.append("the timeline sampler still runs")
+        with LOOPMON._mu:
+            loops = set(LOOPMON._loops) - self._loops
+        problems += [f"loop {n} still registered" for n in sorted(loops)]
+        self.census[self.tag] = problems
+        self.tag = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.end()
 
 
 # Why a remapped body is left out (``collect(..., skip=)``): the deliberate
@@ -284,6 +431,7 @@ class PortRemap:
         self._modules: dict[str, types.ModuleType] = {}
         self._namespaces: dict[str, dict] = {}
         self._builtins = dict(vars(builtins), __import__=self._import)
+        self.life = ModuleLife()
 
     def module(self, ref_name: str) -> types.ModuleType:
         """The port's counterpart of the reference module ``ref_name``."""
@@ -304,6 +452,9 @@ class PortRemap:
 
     def _import(self, name, globals=None, locals=None, fromlist=(),
                 level=0):
+        if level == 0 and name in TOOLS and fromlist:
+            # ``from tools.loadgen import run_load`` drives the port's.
+            return importlib.import_module(TOOLS[name])
         if level == 0 and is_ref(name):
             mod = self.module(name)
             for sub in fromlist or ():
@@ -323,6 +474,9 @@ class PortRemap:
         if inspect.isclass(v) or inspect.isfunction(v):
             if owner and is_ref(owner):
                 return getattr(self.module(owner), v.__name__)
+            if owner in TOOLS:
+                return getattr(importlib.import_module(TOOLS[owner]),
+                               v.__name__)
             if owner and owner.rpartition(".")[2].startswith("test_"):
                 # A helper of another reference test module
                 # (``from tests.test_engine import make_engine``); the
@@ -406,6 +560,16 @@ class PortRemap:
                 setattr(new_cls, k, new_fn if fn is v else type(v)(new_fn))
         return new_cls
 
+    def _module_scoped(self, fn, tag: str, name: str):
+        """A module-scoped fixture of module ``tag`` as a function-scoped
+        one whose value lives as long as that module's cases
+        (``ModuleLife``)."""
+        def fixture(**kw):
+            return self.life.fixture(tag, name, lambda: fn(**kw))
+        fixture.__name__ = fixture.__qualname__ = name
+        fixture.__signature__ = fn.__signature__
+        return fixture
+
     def collect(self, ref_mod: types.ModuleType, tag: str, into: dict,
                 skip: dict | None = None, fixtures: bool = False,
                 slow: dict | None = None) -> dict:
@@ -421,6 +585,7 @@ class PortRemap:
         that module's cases only. Returns the namespace."""
         g = self.namespace(ref_mod)
         skip = skip or {}
+        self.life.tags.add(tag)
         fx = {n: v for n, v in g.items()
               if getattr(v, "_fixture_function_marker", None) is not None}
         rename, uses = {}, []
@@ -434,9 +599,14 @@ class PortRemap:
                 marker = v._fixture_function_marker
                 fn = _case(self.rebind(v._get_wrapped_function(), g),
                            rename, [])
-                into[rename[marker.name or name]] = pytest.fixture(
-                    fn, scope=marker.scope, params=marker.params,
-                    ids=marker.ids, name=rename[marker.name or name])
+                new_name = rename[marker.name or name]
+                scope = marker.scope
+                if scope == "module":
+                    fn, scope = self._module_scoped(fn, tag, new_name), \
+                        "function"
+                into[new_name] = pytest.fixture(
+                    fn, scope=scope, params=marker.params,
+                    ids=marker.ids, name=new_name)
         for name, v in g.items():
             if name.startswith("test_") and inspect.isfunction(v) and \
                     name not in skip:
@@ -464,13 +634,15 @@ def test_remap_resolves_every_reference_name_to_the_port():
     src = ("def f():\n"
            "    from minio_tpu.rpc.cluster import derive_cluster_key\n"
            "    import minio_tpu.rpc.peer as peer\n"
-           "    return derive_cluster_key, peer\n")
+           "    from tools.loadgen import run_load\n"
+           "    return derive_cluster_key, peer, run_load\n")
     ns: dict = {}
     exec(compile(src, "<probe>", "exec"), ns)
     probe = PortRemap.rebind(ns["f"], g)
-    dck, peer = probe()
+    dck, peer, run_load = probe()
     assert dck.__module__ == "minio_tpu_torch.rpc.cluster"
     assert peer.__name__ == "minio_tpu_torch.rpc.peer"
+    assert run_load.__module__ == "minio_tpu_torch.tools.loadgen"
 
 
 def test_remap_gives_card_defaults_the_cpu(tmp_path):
